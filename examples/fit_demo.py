@@ -14,7 +14,7 @@ large geometric misalignments are not recoverable by photometric
 descent alone — the demo therefore fits the smooth appearance
 parameters, which is the well-posed inverse problem.
 
-Run anywhere (TPU or ``RAYTRACE_TPU_FORCE_CPU=1``):
+Run on a GPU, or on the CPU with ``JAX_PLATFORMS=cpu``:
 
     python examples/fit_demo.py [steps]
 """
@@ -26,8 +26,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-REFERENCE_DIR = os.environ.get("RAYTRACE_TPU_REFERENCE_DIR",
-                               "/root/reference")
+GOLDEN_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "test_scene.txt")
 
 
 def main(steps=60):
@@ -42,11 +42,8 @@ def main(steps=60):
     from raytrace_tpu.utils.cache import enable_compile_cache
 
     enable_compile_cache()
-    if os.environ.get("RAYTRACE_TPU_FORCE_CPU"):
-        jax.config.update("jax_platforms", "cpu")
 
-    sc = load_scene_file(os.path.join(REFERENCE_DIR, "test_scene.txt"),
-                         dtype=jnp.float32)
+    sc = load_scene_file(GOLDEN_SCENE, dtype=jnp.float32)
     spec = dataclasses.replace(sc.spec, width=48, height=48)
 
     pix = np.arange(spec.width * spec.height, dtype=np.uint32)

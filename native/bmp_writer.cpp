@@ -1,6 +1,6 @@
 // Native image-output runtime: sRGB encode + BMP row packing + file write.
 //
-// TPU-native equivalent of the reference's native (Rust) image path:
+// Native equivalent of the reference's native (Rust) image path:
 // bmp.rs:10-61 (header + stride) and color.rs:593-632 (to_srgb encode +
 // write_bgr).  The device returns a linear-RGB float image; everything
 // after that — gamma encode, BGR byte packing, bottom-up padded rows,

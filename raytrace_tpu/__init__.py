@@ -1,4 +1,4 @@
-"""raytrace_tpu — a TPU-native differentiable raytracing framework.
+"""raytrace_tpu — a differentiable wavefront raytracing framework.
 
 A from-scratch JAX / XLA / Pallas re-design of the capabilities of the
 reference CPU raytracer ``j-dong/rust-raytrace`` (see SURVEY.md).  The
@@ -9,7 +9,7 @@ with polymorphism (materials / shapes / lights / backgrounds / cameras)
 expressed as integer type ids + masked selects over padded parameter
 tables.  The whole forward pass is differentiable with ``jax.grad``.
 
-Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md §1, re-designed data-parallel-first):
 
     cli.py                 L6 driver            (main.rs)
     scene/dsl.py           L5 scene DSL parser  (serialize.rs)
@@ -17,6 +17,7 @@ Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
     render/integrator.py   L4 wavefront engine  (raytrace.rs)
     scene/schema.py        L3 scene pytree      (scene.rs)
     models/*               L3 semantics         (camera.rs, scene.rs traits)
+    render/megakernel.py   L4 fused render kernel (Pallas, Triton route)
     ops/*                  L2 geometry/shading kernels (shapes.rs, color.rs)
     color.py, ops/rng.py   L1 substrate         (types.rs, color tables)
     parallel/*             net-new: mesh/tile sharding, ring intersection

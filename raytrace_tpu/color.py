@@ -1,8 +1,8 @@
 """Radiometry substrate: linear-RGB color algebra and sRGB conversion.
 
-TPU-native equivalent of the reference's ``src/color.rs`` (SURVEY.md §2 #6).
+Data-parallel equivalent of the reference's ``src/color.rs`` (SURVEY.md §2 #6).
 Colors are not a struct — they are trailing ``(..., 3)`` axes of jnp arrays,
-so all color algebra is ordinary fused elementwise VPU work.
+so all color algebra is ordinary fused elementwise work.
 
 The reference carries two lookup tables:
 
@@ -16,7 +16,7 @@ Both tables are exactly the IEC 61966-2-1 sRGB EOTF evaluated in f64, so we
 generate them from the closed form instead of shipping 500 lines of
 constants, and implement the encoder as a vectorized ``searchsorted`` —
 bit-identical to the reference's linear scan (verified in
-tests/test_color.py), but O(log n) per lane and fully batched on the VPU.
+tests/test_color.py), but O(log n) per lane and fully batched.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Model semantics: cameras, lights, backgrounds, materials.
 
-TPU-native re-designs of the reference's trait hierarchies
+Data-parallel re-designs of the reference's trait hierarchies
 (``src/camera.rs``, ``src/scene.rs`` light/background traits, the four
 ``Material::color`` impls in ``src/raytrace.rs``): each trait becomes a
 batched pure function over structure-of-arrays ray data, with trait

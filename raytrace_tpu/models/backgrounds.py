@@ -1,6 +1,6 @@
 """Background models: solid color and six-face skybox.
 
-TPU-native equivalent of the reference's ``Background`` trait
+Data-parallel equivalent of the reference's ``Background`` trait
 (scene.rs:159-188) and its impls (raytrace.rs:228-256): the per-ray
 dominant-axis macro chain (raytrace.rs:234-245) becomes a branch-free
 masked select over all three axes, and the per-texel ``Texture::sample``

@@ -1,6 +1,6 @@
 """Camera models: batched primary-ray generation.
 
-TPU-native equivalent of the reference's ``Camera`` trait
+Data-parallel equivalent of the reference's ``Camera`` trait
 (camera.rs:19-27) and its two impls: ``SimplePerspectiveCamera::project``
 (camera.rs:77-79) and ``DepthOfFieldCamera::project`` (camera.rs:110-122).
 The per-pixel virtual call becomes batched component-form arithmetic over

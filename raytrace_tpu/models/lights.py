@@ -1,6 +1,6 @@
 """Light models: batched light-direction / range queries.
 
-TPU-native equivalent of the reference's ``LightModel`` trait
+Data-parallel equivalent of the reference's ``LightModel`` trait
 (scene.rs:101-155).  ``light_dir_and_sq_range_for`` becomes a batched
 function per light; the light *type* is static per light index
 (SceneSpec.light_type), so the per-light code path is resolved at trace

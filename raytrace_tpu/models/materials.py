@@ -96,13 +96,9 @@ def shade(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, hit: HitRec,
     for miss lanes is handled by the integrator) and ``children`` are the
     secondary-ray slots (empty at the final level).
 
-    ``depth`` may be a static int (the unrolled level loop / static DFS)
-    or a traced int32 scalar (the stack-DFS loop,
-    integrator.radiance_tree_loop_v, where one traced body serves every
-    tree node).  With a traced depth the ``depth > max_depth`` ambient-
-    only cutoff (raytrace.rs:33) becomes a ``lax.cond`` skipping direct
-    lighting at runtime plus a liveness gate on the child slots — the
-    same semantics, decided per call instead of per trace.
+    ``depth`` is the static recursion depth of the level (the unrolled
+    level loop / static DFS); past ``spec.max_depth`` the level is
+    shaded ambient-only and spawns nothing (raytrace.rs:33).
     """
     dtype = ro.x.dtype
     diffuse, specular, ambient = hit.diffuse, hit.specular, hit.ambient
@@ -170,52 +166,39 @@ def shade(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, hit: HitRec,
 
     emit = ambient  # Transparent's ambient is all-zero by construction
 
-    static_depth = isinstance(depth, (int, np.integer))
-    if static_depth and depth > spec.max_depth:
+    if depth > spec.max_depth:
         # ambient only, no direct light, no recursion (raytrace.rs:33)
         return emit, []
-    depth_ok = None if static_depth else depth <= spec.max_depth
 
     # ---- direct lighting (static loop over lights) ----
-    def direct_lighting(emit):
-        shaded = live & hit.hit
-        inv_pi = np.asarray(1.0 / np.pi, dtype)
-        for li, lt in enumerate(spec.light_type):
-            ldir, sqr, has_range = light_dir_and_sq_range(
-                data, lt, li, pt, k1, k2, dtype)
-            blocked = occluded_v(data, spec, pt + ldir.scale(_OFFSET),
-                                 ldir, sqr, has_range)
-            vis = shaded & ~blocked
-            lr, lg, lb = (data.light_color[li, 0], data.light_color[li, 1],
-                          data.light_color[li, 2])
-            lam = _clamp0(dot(ldir, n_f)) * inv_pi
-            dmask = vis & diffuse_gate
-            wd = jnp.where(dmask, lam, 0.0)
-            emit = V3(emit.x + diffuse.x * lr * wd,
-                      emit.y + diffuse.y * lg * wd,
-                      emit.z + diffuse.z * lb * wd)
-            half = vec.safe_normalize(ldir - rd)
-            ph = _clamp0(dot(n_f, half)) ** exponent
-            smask = vis & spec_gate
-            ws = jnp.where(smask, _fm(ph), 0.0)
-            emit = V3(emit.x + specular.x * lr * ws,
-                      emit.y + specular.y * lg * ws,
-                      emit.z + specular.z * lb * ws)
-        return emit
-
-    if depth_ok is None:
-        emit = direct_lighting(emit)
-    elif spec.light_type:
-        import jax
-        emit = jax.lax.cond(depth_ok, direct_lighting, lambda e: e, emit)
+    shaded = live & hit.hit
+    inv_pi = np.asarray(1.0 / np.pi, dtype)
+    for li, lt in enumerate(spec.light_type):
+        ldir, sqr, has_range = light_dir_and_sq_range(
+            data, lt, li, pt, k1, k2, dtype)
+        blocked = occluded_v(data, spec, pt + ldir.scale(_OFFSET),
+                             ldir, sqr, has_range)
+        vis = shaded & ~blocked
+        lr, lg, lb = (data.light_color[li, 0], data.light_color[li, 1],
+                      data.light_color[li, 2])
+        lam = _clamp0(dot(ldir, n_f)) * inv_pi
+        dmask = vis & diffuse_gate
+        wd = jnp.where(dmask, lam, 0.0)
+        emit = V3(emit.x + diffuse.x * lr * wd,
+                  emit.y + diffuse.y * lg * wd,
+                  emit.z + diffuse.z * lb * wd)
+        half = vec.safe_normalize(ldir - rd)
+        ph = _clamp0(dot(n_f, half)) ** exponent
+        smask = vis & spec_gate
+        ws = jnp.where(smask, _fm(ph), 0.0)
+        emit = V3(emit.x + specular.x * lr * ws,
+                  emit.y + specular.y * lg * ws,
+                  emit.z + specular.z * lb * ws)
 
     # ---- child slots ----
     children: list[Child] = []
     slot = 0
     can_spawn = live & hit.hit
-    if depth_ok is not None:
-        # traced-depth cutoff: past max_depth nothing spawns
-        can_spawn = can_spawn & depth_ok
     if spec.has_reflect:
         rdir = rd - n_f.scale(2.0 * dot(rd, n_f))
         gate = can_spawn & spec_gate & ~is_indirect

@@ -1,19 +1,18 @@
 """Batched ray-scene intersection (closest hit + shadow queries).
 
-TPU-native re-design of the reference's geometry kernel (SURVEY.md §2
+Data-parallel re-design of the reference's geometry kernel (SURVEY.md §2
 #2-5): ``Sphere::intersect`` (shapes.rs:43-89), ``Plane::intersect``
 (shapes.rs:93-112) and the linear-scan ``Scene::intersect``
 (scene.rs:244-250).  The reference tests one ray against one boxed shape
 at a time through a vtable; here a structure-of-arrays batch of N rays is
-tested against all objects at once as pure VPU arithmetic.
+tested against all objects at once as pure elementwise arithmetic.
 
 Layout: everything is component-separated ``(N,)`` arrays (ops/vec.py) —
-an ``(N, O)`` t-matrix with minor dim O would be padded to the 128-lane
-tile and waste ~128/O of HBM traffic, so instead the object loop is
-statically unrolled with a *running min* carried in ``(N,)`` registers,
-and the winning object's **shading parameters are selected during the
-same loop** (a chain of masked selects) — no argmin, no gather, no
-one-hot matmul ever materializes.
+no ``(N, O)`` t-matrix is ever built: the object loop is statically
+unrolled with a *running min* carried in ``(N,)`` registers, and the
+winning object's **shading parameters are selected during the same
+loop** (a chain of masked selects) — no argmin and no gather
+materializes.
 
 Semantics preserved exactly:
 
@@ -160,19 +159,6 @@ def _snapped_point(pt: V3, rel: V3, inv, is_sph, radius, nrm: V3,
 LARGE_SCENE_THRESHOLD = 64
 _SCAN_CHUNK = 16
 
-# winning-row lookup strategy for the scanned regime: the one-hot MXU
-# contraction (ops/gather.py, HIGHEST precision for bit-exactness) beats
-# jnp.take below this object count; above it the O(N*O) matmul flops
-# overtake the gather's fixed cost.  Measured on v5e (524k lanes,
-# (O, 22) table, marginal chained-launch cost): take = 1.3 ms at every
-# O; exact one-hot = 0.44 ms @ O=128, 1.18 ms @ O=1024 => use 512.
-ONE_HOT_LOOKUP_MAX_OBJECTS = 512
-# ...and the (N, O) one-hot intermediate must also be bounded in N*O:
-# a default-lane-budget launch (4.19M lanes) against 512 objects would
-# materialize an 8.6 GB f32 matrix per level.  2^28 elements = 1 GB,
-# the measured-beneficial point (524k lanes x 512 objects).
-ONE_HOT_LOOKUP_MAX_ELEMS = 1 << 28
-
 
 def _typed_geometry(data: SceneData, spec: SceneSpec):
     """Static type partition: (sphere idx, plane idx) as np arrays."""
@@ -274,57 +260,6 @@ def _scan_all_objects(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, a):
     return t_best, jnp.where(hit, obj, 0), hit
 
 
-def _packed_tables(data: SceneData, spec: SceneSpec):
-    """Unified primitive table for the Pallas scan kernel: spheres
-    (cx, cy, cz, r) first, then planes (n, p.n), each partition
-    zero-padded to the kernel's chunk multiple (masked: the kernel
-    requires r > 0 / n != 0, and pad rows carry id -1).
-    Returns (table, n_sph_pad, row->object idmap)."""
-    from raytrace_tpu.ops import intersect_pallas as ip
-
-    sph, pln = _typed_geometry(data, spec)
-    ck = ip._OBJ_CHUNK
-    dtype = data.prim_p.dtype
-
-    def pad(rows, ids):
-        o = rows.shape[0]
-        extra = (-o) % ck if o else ck
-        if extra:
-            rows = jnp.concatenate(
-                [rows, jnp.zeros((extra, 4), dtype)]) if o else \
-                jnp.zeros((ck, 4), dtype)
-            # pad id -1: pad rows are masked (r = 0 / n = 0 plus the
-            # kernel's explicit r > 0 guard), so -1 only surfaces if a
-            # masking bug lets a phantom hit through — detectable
-            # rather than silently aliasing object 0
-            ids = np.concatenate([ids, np.full(extra, -1, np.int32)])
-        return rows, ids
-
-    sph_rows = jnp.concatenate(
-        [data.prim_p[sph], data.prim_q[sph, 0:1]], axis=1)
-    sph_rows, sph_ids = pad(sph_rows, sph.astype(np.int32))
-    pn = jnp.sum(data.prim_p[pln] * data.prim_q[pln], axis=1,
-                 keepdims=True)
-    pln_rows = jnp.concatenate([data.prim_q[pln], pn], axis=1)
-    pln_rows, pln_ids = pad(pln_rows, pln.astype(np.int32))
-
-    table = jnp.concatenate([sph_rows, pln_rows])
-    idmap = jnp.asarray(np.concatenate([sph_ids, pln_ids]))
-    return table, sph_rows.shape[0], idmap
-
-
-def _scan_hit_dispatch(data: SceneData, spec: SceneSpec, ro: V3, rd: V3):
-    """(t_best, obj, hit) for the scanned (large-scene) regime: Pallas
-    kernel on TPU f32, lax.scan elsewhere."""
-    from raytrace_tpu.ops import intersect_pallas as ip
-
-    if ip.usable(ro.x.dtype) and ro.x.ndim == 1:
-        table, n_sph_pad, idmap = _packed_tables(data, spec)
-        t_best, gid, hit = ip.scan_hit(table, idmap, n_sph_pad, ro, rd)
-        return t_best, jnp.where(hit, gid, 0), hit
-    return _scan_all_objects(data, spec, ro, rd, dot(rd, rd))
-
-
 def packed_object_table(data: SceneData, spec: SceneSpec) -> jnp.ndarray:
     """The (O, 22) per-object parameter table the scanned regime (and
     the object-sharded ring render, parallel/ring.py) gathers winning
@@ -345,12 +280,11 @@ def packed_object_table(data: SceneData, spec: SceneSpec) -> jnp.ndarray:
     ], axis=1)
 
 
-def hitrec_from_cols(col, t_best, obj, hit, ro: V3, rd: V3) -> HitRec:
-    """Assemble a HitRec from the winning object's packed-table columns:
-    normal reconstruction, surface snapping, material fields.  ``col``
-    maps a packed-table column index (packed_object_table layout) to the
-    per-lane selected value — ``rows[:, j]`` for the gathered (N, 22)
-    jnp path, a pre-selected lane block for the in-kernel path."""
+def hitrec_from_rows(rows, t_best, obj, hit, ro: V3, rd: V3) -> HitRec:
+    """Assemble a HitRec from gathered packed-table rows (N, 22)
+    (packed_object_table layout): normal reconstruction, surface
+    snapping, material fields."""
+    col = lambda j: rows[:, j]  # noqa: E731
     t_safe = jnp.where(hit, t_best, 0.0)
     pt = ro + rd.scale(t_safe)
     rel = pt - V3(col(0), col(1), col(2))
@@ -376,11 +310,6 @@ def hitrec_from_cols(col, t_best, obj, hit, ro: V3, rd: V3) -> HitRec:
         is_indirect=col(20) > 0.5)
 
 
-def hitrec_from_rows(rows, t_best, obj, hit, ro: V3, rd: V3) -> HitRec:
-    """Assemble a HitRec from gathered packed-table rows (N, 22)."""
-    return hitrec_from_cols(lambda j: rows[:, j], t_best, obj, hit, ro, rd)
-
-
 def _closest_hit_scanned(data: SceneData, spec: SceneSpec, ro: V3,
                          rd: V3) -> HitRec:
     """Large-scene closest hit: scan + one packed-table row gather.
@@ -389,16 +318,8 @@ def _closest_hit_scanned(data: SceneData, spec: SceneSpec, ro: V3,
     packed (O, 22) table — one gather per level instead of per-object
     selects, the right trade once O is large.
     """
-    dtype = ro.x.dtype
-    t_best, obj, hit = _scan_hit_dispatch(data, spec, ro, rd)
-    table = packed_object_table(data, spec)
-    if (table.shape[0] <= ONE_HOT_LOOKUP_MAX_OBJECTS
-            and obj.shape[0] * table.shape[0] <= ONE_HOT_LOOKUP_MAX_ELEMS
-            and jnp.dtype(dtype) == jnp.float32 and obj.ndim == 1):
-        from raytrace_tpu.ops.gather import one_hot, take
-        rows = take(table, one_hot(obj, table.shape[0], dtype))  # (N, 22)
-    else:
-        rows = jnp.take(table, obj, axis=0)             # (N, 22)
+    t_best, obj, hit = _scan_all_objects(data, spec, ro, rd, dot(rd, rd))
+    rows = jnp.take(packed_object_table(data, spec), obj, axis=0)  # (N, 22)
     return hitrec_from_rows(rows, t_best, obj, hit, ro, rd)
 
 
@@ -419,32 +340,12 @@ def set_ring_ctx(ctx):
     return prev
 
 
-# --- in-kernel (VMEM-table) dispatch ---------------------------------------
-# Trace-time hook set by the Pallas megakernel's LARGE-scene regime:
-# while an InlineCtx is active (tracing inside the fused kernel body),
-# closest-hit and shadow queries fold over the VMEM-resident primitive
-# table refs (ops/intersect_inline.py) instead of unrolling the scene
-# or nesting a pallas_call (which is impossible inside a kernel).
-_INLINE_CTX = None
-
-
-def set_inline_ctx(ctx):
-    """Install an in-kernel table context; returns the previous one."""
-    global _INLINE_CTX
-    prev = _INLINE_CTX
-    _INLINE_CTX = ctx
-    return prev
-
-
 @annotate("intersect")
 def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3) -> HitRec:
     """Closest-hit query + material row selection (scene.rs:247-249)."""
     if _RING_CTX is not None:
         from raytrace_tpu.parallel import ring
         return ring.ring_closest_hit(_RING_CTX, ro, rd)
-    if _INLINE_CTX is not None:
-        from raytrace_tpu.ops import intersect_inline
-        return intersect_inline.inline_closest_hit(_INLINE_CTX, ro, rd)
     dtype = ro.x.dtype
     n_like = ro.x
     a = dot(rd, rd)
@@ -541,14 +442,10 @@ def occluded_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
     if _RING_CTX is not None:
         from raytrace_tpu.parallel import ring
         return ring.ring_occluded(_RING_CTX, ro, rd, sq_range, has_range)
-    if _INLINE_CTX is not None:
-        from raytrace_tpu.ops import intersect_inline
-        return intersect_inline.inline_occluded(_INLINE_CTX, ro, rd,
-                                                sq_range, has_range)
     a = dot(rd, rd)
     n_live = sum(1 for t in spec.shape_type if t >= 0)
     if n_live > LARGE_SCENE_THRESHOLD:
-        t_best, _, hit = _scan_hit_dispatch(data, spec, ro, rd)
+        t_best, _, hit = _scan_all_objects(data, spec, ro, rd, a)
         if has_range:
             return hit & (t_best * t_best < sq_range)
         return hit

@@ -1,6 +1,6 @@
 """Counter-based, sharding-invariant RNG for the wavefront renderer.
 
-TPU-native replacement of the reference's sequential ``XorShiftRng`` stream
+Data-parallel replacement of the reference's sequential ``XorShiftRng`` stream
 (types.rs:27, seeded at main.rs:43).  A sequential stream is the single
 worst primitive for a data-parallel renderer: every sample would depend on
 every previous draw.  Instead, every random number is a *pure function of
@@ -84,8 +84,8 @@ def hash_words(seed: int | jnp.ndarray, *words: jnp.ndarray) -> jnp.ndarray:
 
 
 def to_float(u: jnp.ndarray, dtype) -> jnp.ndarray:
-    """uint32 -> float cast for values < 2**31, via int32 (Mosaic has no
-    direct uint32->float lowering; int32->float is supported)."""
+    """uint32 -> float cast for values < 2**31, via int32 (the signed
+    conversion is the one every backend and kernel route lowers)."""
     return u.astype(jnp.int32).astype(dtype)
 
 

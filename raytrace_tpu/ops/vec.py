@@ -1,12 +1,12 @@
-"""Component-separated 3-vectors: the TPU-native vector layout.
+"""Component-separated 3-vectors: the renderer's vector layout.
 
-An ``(N, 3)`` array has its minor dimension = 3, which TPU tiling pads
-to the 128-lane register width — up to ~18x wasted HBM traffic and VPU
-lanes whenever XLA materializes such a tensor (measured on v5e: the
-same intersection math runs ~3x faster in component form).  The hot
-path therefore carries vectors as a ``V3`` named tuple of three ``(N,)``
-arrays, each perfectly tiled; ``(N, 3)`` appears only at public API
-boundaries.
+An ``(N, 3)`` array interleaves components along its minor dimension,
+so elementwise math on one component strides through memory and a
+kernel lane block cannot hold one component per lane.  The hot path
+therefore carries vectors as a ``V3`` named tuple of three contiguous
+``(N,)`` arrays — the layout the fused kernel's 1-D lane blocks and
+XLA's elementwise fusions both want; ``(N, 3)`` appears only at public
+API boundaries.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 
 One logical axis family for this workload (SURVEY.md §5.7-5.8):
 
-* ``"d"`` — the ray/pixel data axis, sharded over every device.  When
-  spanning multiple slices/hosts, build a 2-level ``("dcn", "ici")`` mesh
-  so XLA keeps the heavy collectives on ICI.
+* ``"d"`` — the ray/pixel data axis, sharded over every device.  The
+  cards of one host are joined all to all, so the mesh follows the
+  algorithm alone; multi-process row bands use a 2-level
+  ``("host", "dev")`` mesh (process x local device).
 * ``"p"`` — optional primitive axis for ring-sharded intersection of
   huge scenes (parallel/ring.py).
 """
@@ -22,9 +23,7 @@ def init_distributed(coordinator: str | None = None,
     """Multi-host bring-up (SURVEY.md §5.8): ``jax.distributed
     .initialize`` with standard env-based auto-detection.
 
-    On single-process runs this is a no-op; on TPU pods the runtime
-    env usually provides everything, so bare ``init_distributed()``
-    suffices.  Idempotent: repeated calls are ignored.
+    Idempotent: repeated calls are ignored.
     """
     try:
         jax.distributed.initialize(coordinator_address=coordinator,
@@ -38,16 +37,10 @@ def maybe_init_distributed() -> bool:
     """Initialize multi-process JAX iff the environment asks for it —
     called by the CLI and bench BEFORE any device query.
 
-    Two triggers (first match wins):
-
-    * ``RAYTRACE_TPU_COORDINATOR`` (+ ``RAYTRACE_TPU_NUM_PROCESSES`` /
-      ``RAYTRACE_TPU_PROCESS_ID``): explicit cluster spec — the
-      2-process CPU-cluster test drives this path;
-    * ``RAYTRACE_TPU_DISTRIBUTED=1``: TPU-pod auto-detection
-      (``jax.distributed.initialize()`` with no args — the runtime env
-      provides coordinator/count/id on Cloud TPU).
-
-    Returns True when an initialization was attempted.
+    The trigger is an explicit cluster spec: ``RAYTRACE_TPU_COORDINATOR``
+    (``host:port``) with ``RAYTRACE_TPU_NUM_PROCESSES`` and
+    ``RAYTRACE_TPU_PROCESS_ID`` — the 2-process CPU-cluster test drives
+    this path.  Returns True when an initialization was attempted.
     """
     import os
 
@@ -58,9 +51,6 @@ def maybe_init_distributed() -> bool:
             num_processes=int(os.environ["RAYTRACE_TPU_NUM_PROCESSES"]),
             process_id=int(os.environ["RAYTRACE_TPU_PROCESS_ID"]))
         return True
-    if os.environ.get("RAYTRACE_TPU_DISTRIBUTED", "") not in ("", "0"):
-        init_distributed()
-        return True
     return False
 
 
@@ -70,16 +60,17 @@ def make_mesh(devices=None, axis_name: str = "d") -> Mesh:
     return Mesh(np.asarray(devices), (axis_name,))
 
 
-def make_mesh_2d(n_dcn: int | None = None, devices=None) -> Mesh:
-    """Two-level ("dcn", "ici") mesh: outer axis across process groups
-    (slices / hosts), inner axis across the chips of each group.
+def make_mesh_2d(n_host: int | None = None, devices=None) -> Mesh:
+    """Two-level ("host", "dev") mesh: outer axis across processes,
+    inner axis across each process's local devices (process-major, the
+    layout of the multi-process row bands, parallel/multihost.py).
 
-    With a single process, ``n_dcn`` defaults to 1 (all devices on ICI).
+    ``n_host`` defaults to the process count (1 when single-process).
     """
     devices = jax.devices() if devices is None else devices
-    if n_dcn is None:
-        n_dcn = max(getattr(jax, "process_count", lambda: 1)(), 1)
+    if n_host is None:
+        n_host = max(jax.process_count(), 1)
     n = len(devices)
-    assert n % n_dcn == 0, (n, n_dcn)
-    arr = np.asarray(devices).reshape(n_dcn, n // n_dcn)
-    return Mesh(arr, ("dcn", "ici"))
+    assert n % n_host == 0, (n, n_host)
+    arr = np.asarray(devices).reshape(n_host, n // n_host)
+    return Mesh(arr, ("host", "dev"))

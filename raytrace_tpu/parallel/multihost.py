@@ -1,10 +1,10 @@
 """Multi-process (multi-host) rendering: the real ≥2-host execution
-path (SURVEY.md §5.8; VERDICT r3 missing #1).
+path (SURVEY.md §5.8).
 
 The reference streams rows to disk as they finish (main.rs:56-58); the
 multi-host analog is **per-host row bands**: the image's pixel rows are
 split into one contiguous band per process, each band sharded over that
-process's local devices on a global ``("dcn", "ici")`` mesh.  Forward
+process's local devices on a global ``("host", "dev")`` mesh.  Forward
 rendering needs zero cross-host collectives (embarrassingly parallel;
 the counter-based RNG keys by *global* pixel identity so the result is
 bit-identical to a single-process render), and each host fetches ONLY
@@ -60,7 +60,7 @@ def render_rows_multihost(scene: Scene, *, seed: int = 0,
     image = bottom, BMP order).  All processes must call this
     collectively (it launches a global computation over the full mesh).
 
-    Partitioning is by WHOLE image rows (VERDICT r4 missing #3): the
+    Partitioning is by WHOLE image rows: the
     row axis is padded up to a device-count multiple and each device
     renders a contiguous band of ``rows_pad / n_dev`` rows, so every
     ``(W, H, process x device)`` combination renders — the reference
@@ -71,7 +71,8 @@ def render_rows_multihost(scene: Scene, *, seed: int = 0,
     """
     from raytrace_tpu.render.integrator import (_render_chunks,
                                                 _retry_launch,
-                                                _s_p_launch, _lane_width)
+                                                _s_p_launch,
+                                                _wavefront_widest)
 
     data, spec = scene.data, scene.spec
     mesh = mesh if mesh is not None else make_mesh_2d()
@@ -114,7 +115,7 @@ def render_rows_multihost(scene: Scene, *, seed: int = 0,
     # and itself tiles its shard into p_local-pixel launches, so the
     # per-device pixel tile must respect the budget too
     s_launch, p_budget = _s_p_launch(spec, aa, max_lanes,
-                                     _lane_width(data, spec))
+                                     _wavefront_widest(spec))
     p_local = max(min(n_tot // n_dev, p_budget), 1)
 
     @partial(jax.jit, static_argnames=("s_launch", "n_chunks"))
@@ -210,8 +211,7 @@ def _barrier(tag: str) -> None:
     write protocol (header must exist before any host seeks into the
     file; all rows must land before anyone reads the result), and
     proceeding on a best-effort sleep would race the header write and
-    corrupt the very file the barrier exists to protect (VERDICT r4
-    weak #3).  Callers that cannot sync must not write.
+    corrupt the very file the barrier exists to protect.  Callers that cannot sync must not write.
     """
     if jax.process_count() <= 1:
         return

@@ -2,19 +2,17 @@
 
 For scenes too large to keep resident per-device during intersection,
 the object set is sharded over the mesh's data axis and *circulated*
-around the ICI ring with ``lax.ppermute`` (SURVEY.md §5.7): at every one
-of the k steps each device intersects its ray shard against the object
-shard currently resident, folds the result into a running
+around the device ring with ``lax.ppermute`` (SURVEY.md §5.7): at every
+one of the k steps each device intersects its ray shard against the
+object shard currently resident, folds the result into a running
 ``min(t)`` — an associative reduction, so the ring form is exact — and
 forwards the shard to its neighbor.  After k steps every ray has seen
 every object while only 1/k of the geometry was ever resident per
 device.
 
-The per-step shard intersection is the same unified-table primitive as
-the single-device scanned path: the Pallas kernel
-(ops/intersect_pallas.py) on TPU f32, ``lax.scan`` elsewhere — so the
-per-device program size is O(1) in shard size and the hot loop runs in
-VMEM on hardware.
+The per-step shard intersection is a ``lax.scan`` over the shard's
+unified primitive table (:func:`scan_table`), so the per-device program
+size is O(1) in shard size.
 
 There is no softmax-like coupling across the object axis (unlike
 attention), so no blockwise/Ulysses variant is needed — the ring is the
@@ -33,8 +31,7 @@ import jax.numpy as jnp
 from jax import lax, shard_map
 from jax.sharding import PartitionSpec as P
 
-from raytrace_tpu.ops import intersect_pallas as ip
-from raytrace_tpu.ops.intersect import _typed_geometry
+from raytrace_tpu.ops.intersect import _typed_geometry, vma_zeros
 from raytrace_tpu.ops.vec import V3
 from raytrace_tpu.scene.schema import Scene, SceneData, SceneSpec
 
@@ -51,12 +48,10 @@ def shard_geometry(data: SceneData, spec: SceneSpec, k: int):
     """
     sph, pln = _typed_geometry(data, spec)
     dt = data.prim_p.dtype
-    ck = ip._OBJ_CHUNK
 
     def shard_rows(rows, ids):
         o = rows.shape[0]
         per = -(-max(o, 1) // k)
-        per = -(-per // ck) * ck          # chunk-aligned shard size
         pad = per * k - o
         rows = jnp.concatenate(
             [rows, jnp.zeros((pad, 4), dt)]) if o else jnp.zeros(
@@ -81,16 +76,62 @@ def shard_geometry(data: SceneData, spec: SceneSpec, k: int):
     return tables, ids, n_sph_pad
 
 
-def _shard_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3):
-    """(t, global obj id, hit) of one resident shard vs the ray shard.
+_ID_SENTINEL = np.int32(2 ** 31 - 1)  # obj value on miss lanes
 
-    scan_hit folds on global ids directly, so within a shard an exact
-    t tie already resolves to the lowest global id (scene.rs:248);
-    the cross-shard fold in ring_closest_hit_local does the same.
+
+def scan_table(table, ids, n_sph_pad: int, ro: V3, rd: V3):
+    """(t, global obj id, hit) of rays vs one unified primitive table.
+
+    table: (C, 4), spheres (cx, cy, cz, r) in rows [0, n_sph_pad),
+    planes (nx, ny, nz, p.n) after (shapes.rs:60-87, 102-110; the plane
+    test only needs ``n.(p0 - o) = p.n - o.n``, so the point is
+    pre-reduced); ids: (C,) int32 global object id per row (pad rows:
+    -1, masked by r > 0 / n != 0).  On an exact t tie the lowest global
+    id wins (min_by_key first-in-scene-order, scene.rs:248), so within
+    a shard and across the ring fold ties resolve identically.  Miss
+    lanes carry id 2^31-1 — mask with ``hit`` before gathering.
     """
-    if ip.usable(ro.x.dtype) and ro.x.ndim == 1:
-        return ip.scan_hit(table, ids, n_sph_pad, ro, rd)
-    return ip._jnp_scan_reference(table, ids, n_sph_pad, ro, rd)
+    a = rd.x * rd.x + rd.y * rd.y + rd.z * rd.z
+    # derive the carry init from ro.x so it inherits ro's vma (inside
+    # shard_map a replicated zeros init would mismatch the carry type);
+    # vma_zeros also sanitizes non-finite dead-lane origins
+    zero = vma_zeros(ro.x)
+    init = (zero + jnp.inf, zero.astype(jnp.int32) + _ID_SENTINEL,
+            zero > 1)
+
+    def step(carry, xs):
+        row, gid, rowid = xs
+        is_sph = rowid < n_sph_pad
+        # sphere branch
+        ocx, ocy, ocz = ro.x - row[0], ro.y - row[1], ro.z - row[2]
+        b = 2.0 * (rd.x * ocx + rd.y * ocy + rd.z * ocz)
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - row[3] * row[3]
+        disc = b * b - 4.0 * a * cc
+        has = disc > 0.0
+        sq = jnp.sqrt(jnp.where(has, disc, 1.0))
+        inv2a = 0.5 / jnp.where(a > 0, a, 1.0)  # zero-rd-safe (intersect.safe_inv2a)
+        ts1 = (-b - sq) * inv2a
+        ts2 = (-b + sq) * inv2a
+        ts = jnp.where(ts1 > 0.0, ts1, ts2)
+        vs = has & (ts > 0.0) & (row[3] > 0.0)  # r > 0: mask pad rows
+        # plane branch
+        denom = rd.x * row[0] + rd.y * row[1] + rd.z * row[2]
+        numer = row[3] - (ro.x * row[0] + ro.y * row[1] + ro.z * row[2])
+        ok = denom != 0.0
+        tp = numer / jnp.where(ok, denom, 1.0)
+        vp = ok & (tp > 0.0)
+
+        t_i = jnp.where(is_sph, ts, tp)
+        v_i = jnp.where(is_sph, vs, vp)
+        t_best, obj, hit = carry
+        t_i = jnp.where(v_i, t_i, jnp.inf)
+        better = (t_i < t_best) | ((t_i == t_best) & v_i & (gid < obj))
+        return (jnp.where(better, t_i, t_best),
+                jnp.where(better, gid, obj), hit | v_i), None
+
+    rowids = jnp.arange(table.shape[0], dtype=jnp.int32)
+    (t, obj, hit), _ = jax.lax.scan(step, init, (table, ids, rowids))
+    return t, obj, hit
 
 
 def ring_closest_hit_local(table, ids, n_sph_pad: int, ro: V3, rd: V3,
@@ -110,7 +151,7 @@ def ring_closest_hit_local(table, ids, n_sph_pad: int, ro: V3, rd: V3,
     hit = jnp.zeros(ro.x.shape, bool)
 
     for step in range(k):
-        t_s, gid, h_s = _shard_hit(table, ids, n_sph_pad, ro, rd)
+        t_s, gid, h_s = scan_table(table, ids, n_sph_pad, ro, rd)
         t_s = jnp.where(h_s, t_s, jnp.inf)
         better = (t_s < t_best) | ((t_s == t_best) & h_s & (gid < obj))
         t_best = jnp.where(better, t_s, t_best)
@@ -255,8 +296,7 @@ def render_image_ring(scene: Scene, *, seed: int = 0,
     """
     from raytrace_tpu.ops.intersect import packed_object_table
     from raytrace_tpu.parallel.mesh import make_mesh
-    from raytrace_tpu.render.integrator import (_image_loop,
-                                                _wavefront_widest)
+    from raytrace_tpu.render.integrator import _image_loop
 
     data, spec = scene.data, scene.spec
     mesh = mesh if mesh is not None else make_mesh()
@@ -291,26 +331,17 @@ def render_image_ring(scene: Scene, *, seed: int = 0,
     def launch(data, spec, px, py, sids, seed):
         raise NotImplementedError  # chunked path is always used
 
-    # the ring context disables the megakernel inside the shard_map
-    # body, so launches must be sized for the jnp wavefront's widest
-    # level — _image_loop's default _lane_width probe runs outside the
-    # ring context and would think the kernel (O(1) lanes) applies
     return _image_loop(ring_scene, launch, seed=seed, spp=spp,
                        max_lanes=max_lanes * k, progress=progress,
-                       checkpoint=checkpoint, launch_chunks=launch_chunks,
-                       lane_width=_wavefront_widest(spec))
+                       checkpoint=checkpoint, launch_chunks=launch_chunks)
 
 
-def make_ring_intersector(spec: SceneSpec, mesh, axis: str = "d",
-                          check_vma: bool = True):
+def make_ring_intersector(spec: SceneSpec, mesh, axis: str = "d"):
     """Jitted end-to-end ring intersection over ``mesh``.
 
     Returns ``fn(data, ro (N,3), rd (N,3)) -> (t, obj, hit)`` with rays
     and objects both sharded over ``axis`` (N divisible by the mesh
-    size).  ``check_vma=False`` is needed only to run the Pallas kernel
-    in interpret mode inside shard_map (the HLO interpreter trips JAX's
-    strict varying-axes check; JAX's own error message prescribes this
-    workaround) — hardware runs keep the default strict checking.
+    size).
     """
     k = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
 
@@ -326,8 +357,7 @@ def make_ring_intersector(spec: SceneSpec, mesh, axis: str = "d",
         fn = shard_map(
             body, mesh=mesh,
             in_specs=(P(axis), P(axis), P(axis), P(axis)),
-            out_specs=(P(axis), P(axis), P(axis)),
-            check_vma=check_vma)
+            out_specs=(P(axis), P(axis), P(axis)))
         return fn(tables, ids, ro, rd)
 
     return jax.jit(run)

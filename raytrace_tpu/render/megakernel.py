@@ -1,17 +1,18 @@
-"""Pallas TPU megakernel: the whole render pipeline as ONE fused kernel.
+"""Fused render kernel: the whole per-lane pipeline as ONE Pallas kernel
+compiled through Triton for the GPU.
 
 The jnp wavefront path (render/integrator.py) is correct and fully
-general, but XLA materializes every fusion boundary to HBM — dozens of
-``(N,)`` f32 intermediates per level round.  For the hot configuration
-(scenes whose wavefront never fans out: ``spec.children_per_ray <= 1``,
-which includes the reference's golden scene — one indirect MC slot,
-raytrace.rs:99-117 — and pure mirror-Phong scenes) this kernel runs the
-*entire* per-lane pipeline — RNG key derivation, AA jitter, NDC
-transform (main.rs:39-53), camera projection (camera.rs:77-122), all
-``max_depth + 2`` closest-hit + shade rounds (raytrace.rs:261-276) —
-on ``(block_rows, 128)`` register blocks that never leave VMEM.  HBM
-traffic drops to 16 B/lane of integer identity in + 12 B/lane of
-radiance out; everything else lives in vector registers.
+general, but XLA may materialize fusion boundaries to device memory —
+``(N,)`` f32 intermediates per level round.  For scenes whose wavefront
+never fans out (``spec.children_per_ray <= 1``, which includes the
+reference's golden scene — one indirect MC slot, raytrace.rs:99-117 —
+and pure mirror-Phong scenes) with at most ``LARGE_SCENE_THRESHOLD``
+objects, this kernel runs the *entire* per-lane pipeline — RNG key
+derivation, AA jitter, NDC transform (main.rs:39-53), camera projection
+(camera.rs:77-122), all ``max_depth + 2`` closest-hit + shade rounds
+(raytrace.rs:261-276) — on 1-D lane blocks held in registers.  Device
+memory traffic is 16 B/lane of integer identity in + 12 B/lane of
+radiance out.
 
 Design notes:
 
@@ -19,38 +20,27 @@ Design notes:
   functions as the jnp path (``integrator.primary_rays``,
   ``integrator.radiance_linear_v`` → ``ops.intersect.closest_hit``,
   ``models.materials.shade``, ...).  Those are all elementwise and
-  shape-agnostic, so they trace equally well on 2D VMEM blocks inside
+  shape-agnostic, so they trace equally well on lane blocks inside
   ``pallas_call``.  Correctness of the kernel *is* correctness of the
-  reference semantics already unit-tested on the jnp path, and the two
-  paths can be asserted equal bit-for-bit in interpret mode.
+  reference semantics already unit-tested on the jnp path.
 
-* **Scene scalars ride SMEM.**  The scene is a few hundred floats
-  (7-object golden scene: ~170).  They are packed into one ``(1, K)``
-  row placed in SMEM; inside the kernel a tiny shim (:class:`_Tab`)
-  re-presents them with the ``data.prim_p[i, 0]`` indexing the shared
-  code uses, each access lowering to one scalar load + broadcast.
-  This keeps every vector op on perfectly tiled ``(rows, 128)`` blocks
-  and sidesteps any gather machinery.
+* **Scene scalars are one small input.**  The scene is a few hundred
+  floats (7-object golden scene: ~170), packed into one 1-D array
+  padded to a power of two.  Inside the kernel a tiny shim
+  (:class:`_Tab`) re-presents them with the ``data.prim_p[i, 0]``
+  indexing the shared code uses; each access is one scalar load,
+  uniform across the block and cache-resident.
 
-* **Scope.**  ``usable()`` is the single gate.  Linear (fan-out <= 1)
-  scenes run fused at ANY object count: small scenes read the scene
-  from SMEM scalars; past ``LARGE_SCENE_THRESHOLD`` objects the
-  primitive + material tables ride VMEM and closest-hit becomes the
-  in-kernel chunk fold of :mod:`raytrace_tpu.ops.intersect_inline`
-  (chunk culling + dynamic-gather material resolve), so a
-  100-10,000-object scene keeps fused 28 B/lane shading instead of
-  dropping to the HBM-bound jnp wavefront.  Fan-out scenes run as the
-  static DFS (small trees) or the stack-DFS loop — which composes with
-  the large regime (the fold runs inside the loop's node body, r5) —
-  and skybox backgrounds compose with all of it via deferred-miss
-  records (merged / per-node / K-slot, see ``_n_miss_records``).  Only
-  f64, VMEM-budget overflows (logged), and object-sharded ring renders
-  fall back to the jnp path.
+* **Scope.**  :func:`fits` is the regime check (linear, small, f32);
+  :func:`usable` adds the capability check (a GPU backend, no
+  object-sharded ring context).  Fan-out and large scenes run the XLA
+  wavefront.  Skybox backgrounds defer the texture lookup: the kernel
+  streams ONE merged miss record per lane and a jnp post-pass adds
+  ``tp * skybox(rd)``.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 from types import SimpleNamespace
 
@@ -62,227 +52,46 @@ from raytrace_tpu.ops.intersect import LARGE_SCENE_THRESHOLD
 from raytrace_tpu.ops.vec import V3
 from raytrace_tpu.scene.schema import BG_SOLID, SceneData, SceneSpec
 
-# lane-block geometry: each grid step processes (BLOCK_ROWS, 128) lanes.
-# Measured on v5e (multi-k least-squares chain slope, 2M lanes, golden
-# scene, grid marked parallel; r4 re-sweep after the level-loop +
-# static-fresnel-skip changes): 16 rows -> 6.73-6.93G rays/s,
-# 32 -> 6.49-6.57G, 64 -> 6.15G, 8/24/48 -> 5.6-5.9G, 96+ -> <5.5G.
-# Smaller blocks pipeline better across grid steps until the (8, 128)
-# tile minimum adds padding overhead (8 rows regresses).
-LANE = 128
-BLOCK_ROWS = int(os.environ.get("RAYTRACE_TPU_MEGAKERNEL_ROWS", "16"))
-# fan-out (tree-walk) scenes hold each pending sibling's ray state live
-# across the DFS (~11 blocks x depth lanes of f32), so they take smaller
-# blocks to stay within VMEM (32 rows exceeds the 16M scoped-vmem stack
-# limit by 0.6M on v5e for a 63-node tree; 16 compiles and runs).
-# None = derive from the detected TPU generation (utils/tpu_info —
-# v6e's doubled VMEM doubles the rows); env override wins.
-TREE_BLOCK_ROWS = (int(os.environ["RAYTRACE_TPU_MEGAKERNEL_TREE_ROWS"])
-                   if "RAYTRACE_TPU_MEGAKERNEL_TREE_ROWS" in os.environ
-                   else None)
+# lanes per block and Triton launch parameters, chosen by the on-card
+# sweep recorded in PERF.md (golden scene, 2^21 lanes)
+BLOCK_LANES = 256
+NUM_WARPS = 8
+NUM_STAGES = 1
 
-
-def _tree_block_rows() -> int:
-    if TREE_BLOCK_ROWS is not None:
-        return TREE_BLOCK_ROWS
-    from raytrace_tpu.utils.tpu_info import vmem_scale
-    return 16 * vmem_scale()
-
-# packed scalar layout: SceneData leaves that ride the SMEM row, in
-# declaration order.  bg_cube is excluded always (solid backgrounds
-# never touch it; skybox gathers run in the deferred post-pass).  In
-# the LARGE-scene regime the per-object leaves (_LAYOUT_OBJ) leave SMEM
-# entirely — they ride VMEM tables consumed by the in-kernel fold
-# (ops/intersect_inline.py) — and only _LAYOUT_MISC is packed.
-_LAYOUT_OBJ = (
-    ("prim_p", 2), ("prim_q", 2),
-    ("mat_diffuse", 2), ("mat_specular", 2), ("mat_exponent", 1),
-    ("mat_ambient", 2), ("mat_ior", 1), ("mat_samples", 1),
-)
-_LAYOUT_MISC = (
-    ("light_p", 2), ("light_e1", 2), ("light_e2", 2), ("light_color", 2),
-    ("cam_position", 1), ("cam_matrix", 2),
-    ("cam_focus", 0), ("cam_aperture", 0), ("cam_im_dist", 0),
-    ("bg_color", 1),
+# SceneData leaves packed into the scalar parameter array, in order.
+# bg_cube is excluded (solid backgrounds never touch it; skybox lookups
+# run in the deferred post-pass).
+_LAYOUT = (
+    "prim_p", "prim_q",
+    "mat_diffuse", "mat_specular", "mat_exponent",
+    "mat_ambient", "mat_ior", "mat_samples",
+    "light_p", "light_e1", "light_e2", "light_color",
+    "cam_position", "cam_matrix",
+    "cam_focus", "cam_aperture", "cam_im_dist",
+    "bg_color",
 )
 
 
-def _layout(large: bool):
-    return _LAYOUT_MISC if large else _LAYOUT_OBJ + _LAYOUT_MISC
-
-
-def _env_flag(name: str) -> bool:
-    return os.environ.get(name, "") not in ("", "0")
-
-
-# regime-transition visibility (VERDICT r4 weak #2): silent fused->split
-# fallbacks made perf cliffs undiagnosable.  Each distinct (reason,
-# scene shape) is logged once per process.
-_LOGGED_REGIMES: set = set()
-
-
-def _log_regime(key: tuple, msg: str) -> None:
-    if key in _LOGGED_REGIMES:
-        return
-    _LOGGED_REGIMES.add(key)
-    import sys
-    print(f"[raytrace_tpu] {msg}", file=sys.stderr)
-
-
-# fan-out scenes run as a DFS over the virtual child tree.  Small trees
-# are statically inlined (integrator.radiance_tree_v: each node is one
-# inlined closest-hit + shade round, program size O(nodes)); 63 = a
-# 2-live-children scene at depth 4 (transparent reflect+refract,
-# 2-sample indirect).  Larger trees run the stack-DFS *loop*
-# (integrator.radiance_tree_loop_v: one traced node body, pending
-# siblings on an explicit VMEM stack of lane blocks) whose program size
-# is O(1) in the node count — a 4-sample IndirectPhong scene at depth 4
-# (1365 nodes) compiles and runs fused.  The loop regime is bounded
-# only by its stack footprint in VMEM (see usable()).
-TREE_NODE_BUDGET = int(os.environ.get(
-    "RAYTRACE_TPU_MEGAKERNEL_TREE_NODES", "63"))
-# stack-DFS VMEM budget: cap * 13 components * rows * 128 lanes * 4 B
-# must leave room for the shade live set.  None = 6/16 of the detected
-# per-core VMEM (= the measured 6 MiB on v5e's 16 MiB); env wins.
-TREE_LOOP_VMEM_BUDGET = (int(os.environ["RAYTRACE_TPU_MEGAKERNEL_LOOP_VMEM"])
-                         if "RAYTRACE_TPU_MEGAKERNEL_LOOP_VMEM" in os.environ
-                         else None)
-
-
-def _tree_loop_vmem_budget() -> int:
-    if TREE_LOOP_VMEM_BUDGET is not None:
-        return TREE_LOOP_VMEM_BUDGET
-    from raytrace_tpu.utils.tpu_info import vmem_bytes
-    return (vmem_bytes() * 6) // 16
-
-
-def _tree_loop_stack_bytes(spec: SceneSpec, rows: int | None = None) -> int:
-    from raytrace_tpu.render.integrator import tree_loop_stack
-    _, _, _, cap = tree_loop_stack(spec)
-    return cap * 13 * (rows if rows is not None
-                       else _tree_block_rows()) * LANE * 4
-
-
-# LARGE-scene regime: lane blocks per grid step.  Bigger blocks
-# amortize the fold's per-chunk SCALAR work (SMEM id/bound loads run
-# once per block, not per lane), which dominates as the chunk count
-# grows — measured end-to-end vs the split regime on v5e (r4):
-# 4,108-object field 32 rows -> 0.90x, 64 -> 1.06x, 128 -> pathological
-# (launches slow >25x; the material pass's 22 live column blocks blow
-# VMEM at 128 x 128 lanes); 1,006-object field 16 -> 0.90x,
-# 32 -> 1.29x, 64 -> 1.56x.  64 wins both.  VMEM budget for the
-# resident primitive + material tables ((rows, 4) + (rows, 22) f32 =
-# 104 B/row -> the default 4 MiB covers ~40k objects).
-LARGE_BLOCK_ROWS = int(os.environ.get(
-    "RAYTRACE_TPU_MEGAKERNEL_LARGE_ROWS", "64"))
-# LARGE x fan-out (r5): the stack-DFS loop with the in-kernel table
-# fold.  Block rows trade the fold's per-chunk scalar amortization
-# (wants big blocks, like LARGE_BLOCK_ROWS) against the DFS stack's
-# VMEM footprint (cap x 13 x rows x 128 x 4 B, which shares VMEM with
-# the resident tables).  Measured end-to-end on v5e (1,006-object
-# mixed field, m=2 / cap-6 tree, 256k lanes): 64 rows -> 81.1 ms,
-# 32 -> 88.1, 16 -> 113.9 — bigger blocks win while the stack fits,
-# so the default picks the LARGEST of 64/32/16 whose stack stays
-# within the loop VMEM budget (deep m=4 / cap-16 stacks step down
-# automatically).  None = adaptive; env override wins.
-LARGE_TREE_BLOCK_ROWS = (
-    int(os.environ["RAYTRACE_TPU_MEGAKERNEL_LARGE_TREE_ROWS"])
-    if "RAYTRACE_TPU_MEGAKERNEL_LARGE_TREE_ROWS" in os.environ
-    else None)
-
-
-def _large_tree_block_rows(spec: SceneSpec | None = None) -> int:
-    if LARGE_TREE_BLOCK_ROWS is not None:
-        return LARGE_TREE_BLOCK_ROWS
-    from raytrace_tpu.utils.tpu_info import vmem_scale
-    scale = vmem_scale()
-    if spec is None:
-        return 64 * scale
-    budget = _tree_loop_vmem_budget()
-    for rows in (64 * scale, 32 * scale, 16 * scale):
-        if _tree_loop_stack_bytes(spec, rows) <= budget:
-            return rows
-    return 16 * scale
-TABLE_VMEM_BUDGET = (int(os.environ["RAYTRACE_TPU_MEGAKERNEL_TABLE_VMEM"])
-                     if "RAYTRACE_TPU_MEGAKERNEL_TABLE_VMEM" in os.environ
-                     else None)
-
-
-def _table_vmem_budget() -> int:
-    if TABLE_VMEM_BUDGET is not None:
-        return TABLE_VMEM_BUDGET
-    from raytrace_tpu.utils.tpu_info import vmem_bytes
-    return (vmem_bytes() * 4) // 16
-
-
-def _table_rows(spec: SceneSpec) -> int:
-    """Row count of the padded unified table (intersect._packed_tables'
-    pad rule: each type partition padded to a chunk multiple; an empty
-    partition still takes one chunk of masked rows)."""
-    from raytrace_tpu.ops import intersect_pallas as ip
-    from raytrace_tpu.scene.schema import SHAPE_SPHERE
-
-    ck = ip._OBJ_CHUNK
-    n_s = sum(1 for t in spec.shape_type if t == SHAPE_SPHERE)
-    n_p = sum(1 for t in spec.shape_type if t >= 0) - n_s
-    pad = lambda n: (-(-n // ck) * ck) if n else ck  # noqa: E731
-    return pad(n_s) + pad(n_p)
+def fits(spec: SceneSpec, dtype) -> bool:
+    """Whether the scene's regime is one the kernel covers: a linear
+    chain (``children_per_ray <= 1``), at most ``LARGE_SCENE_THRESHOLD``
+    live objects, f32."""
+    n_live = sum(1 for t in spec.shape_type if t >= 0)
+    return (spec.children_per_ray <= 1
+            and n_live <= LARGE_SCENE_THRESHOLD
+            and jnp.dtype(dtype) == jnp.float32)
 
 
 def usable(data: SceneData, spec: SceneSpec) -> bool:
-    """Whether this (data, spec) renders through the megakernel."""
+    """Whether this (data, spec) renders through the compiled kernel:
+    the regime fits and the default backend is a GPU.  Inside an
+    object-sharded ring render closest-hit needs ``ppermute`` over the
+    mesh axis, which cannot run inside a kernel."""
     from raytrace_tpu.ops import intersect
-    from raytrace_tpu.render.integrator import tree_nodes
 
-    if _env_flag("RAYTRACE_TPU_NO_MEGAKERNEL"):
-        return False
-    if intersect._RING_CTX is not None:
-        # object-sharded ring render: closest-hit needs ppermute over
-        # the mesh axis, which cannot run inside the fused kernel
-        return False
-    interpret = _env_flag("RAYTRACE_TPU_MEGAKERNEL_INTERPRET")
-    if not interpret and jax.default_backend() != "tpu":
-        return False
-    n_live = sum(1 for t in spec.shape_type if t >= 0)
-    large = n_live > LARGE_SCENE_THRESHOLD
-    # skybox always runs fused via the deferred-miss post-pass (r5):
-    # linear chains emit ONE merged record (a live linear lane misses
-    # at most once); small fan-out scenes run the STATIC tree DFS with
-    # one record per node (the exact bounded encoding); loop-regime
-    # fan-out scenes keep K bounded miss slots per lane with an exact
-    # lax.cond jnp fallback on slot overflow — no skybox fallback gate
-    # remains (raytrace.rs:234-256 composes with every recursion shape)
-    if large:
-        # large regime: VMEM-resident tables + in-kernel chunk fold
-        # (ops/intersect_inline.py).  Linear chains run the level loop;
-        # fan-out scenes (r5) run the stack-DFS loop with the fold in
-        # its node body — one traced copy, O(1) program size — sharing
-        # VMEM between the tables and the DFS stack.
-        table_ok = _table_rows(spec) * 26 * 4 <= _table_vmem_budget()
-        stack_ok = (spec.children_per_ray <= 1
-                    or _tree_loop_stack_bytes(spec, _large_tree_block_rows(spec))
-                    <= _tree_loop_vmem_budget())
-        if not table_ok:
-            _log_regime(
-                ("table", n_live),
-                f"scene ({n_live} objects) exceeds the VMEM table budget "
-                f"({_table_rows(spec) * 26 * 4} > {_table_vmem_budget()} B)"
-                f" — falling back from the fused megakernel to the split "
-                f"regime (scan kernel + jnp wavefront)")
-        elif not stack_ok:
-            _log_regime(
-                ("stack", n_live, spec.children_per_ray),
-                f"large fan-out scene ({n_live} objects): DFS stack "
-                f"({_tree_loop_stack_bytes(spec, _large_tree_block_rows(spec))}"
-                f" B) exceeds the loop VMEM budget — falling back to the "
-                f"split regime")
-        size_ok = table_ok and stack_ok
-    else:
-        size_ok = (spec.children_per_ray <= 1
-                   or tree_nodes(spec) <= TREE_NODE_BUDGET
-                   or _tree_loop_stack_bytes(spec)
-                   <= _tree_loop_vmem_budget())
-    return size_ok and jnp.dtype(data.prim_p.dtype) == jnp.float32
+    return (intersect._RING_CTX is None
+            and jax.default_backend() == "gpu"
+            and fits(spec, data.prim_p.dtype))
 
 
 class _Tab:
@@ -304,347 +113,114 @@ class _Tab:
         return _Tab(v, self.dtype) if isinstance(v, list) else v
 
 
-def _leaf_shapes(data: SceneData, large: bool = False):
-    shapes = []
-    for name, _ in _layout(large):
-        shapes.append((name, tuple(np.shape(getattr(data, name)))))
-    return tuple(shapes)
+def _leaf_shapes(data: SceneData):
+    return tuple((name, tuple(np.shape(getattr(data, name))))
+                 for name in _LAYOUT)
 
 
-def _pack_params(data: SceneData, large: bool = False) -> jnp.ndarray:
-    """Flatten the scalar scene leaves into one (1, K) f32 row."""
-    parts = [jnp.ravel(getattr(data, name)).astype(jnp.float32)
-             for name, _ in _layout(large)]
-    return jnp.concatenate(parts)[None, :]
+def _pack_params(data: SceneData) -> jnp.ndarray:
+    """Flatten the scalar scene leaves into one 1-D f32 array whose
+    length is a power of two (Triton block shapes must be)."""
+    flat = jnp.concatenate([jnp.ravel(getattr(data, name)).astype(jnp.float32)
+                            for name in _LAYOUT])
+    k = flat.shape[0]
+    return jnp.pad(flat, (0, _pow2(k) - k))
+
+
+def _pow2(k: int) -> int:
+    """Smallest power of two >= k (and >= 1)."""
+    return 1 << max(k - 1, 0).bit_length()
 
 
 def _unpack_params(params_ref, shapes, dtype):
     """Rebuild a SceneData-shaped namespace of scalar shims from the
-    packed SMEM row.  Every element is one scalar read.  Leaves absent
-    from ``shapes`` (the per-object tables in the large regime) become
-    empty shims that still carry ``dtype`` but trap any indexing —
-    nothing may touch them, closest-hit being redirected to the VMEM
-    tables (intersect.set_inline_ctx)."""
+    packed parameter array.  Every element is one scalar load."""
     fields = {}
     k = 0
-
-    def scalar(i):
-        return params_ref[0, i]
-
     for name, shape in shapes:
         if len(shape) == 0:
-            fields[name] = scalar(k)
+            fields[name] = params_ref[k]
             k += 1
         elif len(shape) == 1:
-            fields[name] = _Tab([scalar(k + i) for i in range(shape[0])],
+            fields[name] = _Tab([params_ref[k + i] for i in range(shape[0])],
                                 dtype)
             k += shape[0]
         else:
-            rows = []
-            for i in range(shape[0]):
-                rows.append([scalar(k + i * shape[1] + j)
-                             for j in range(shape[1])])
-            fields[name] = _Tab(rows, dtype)
+            fields[name] = _Tab(
+                [[params_ref[k + i * shape[1] + j] for j in range(shape[1])]
+                 for i in range(shape[0])], dtype)
             k += shape[0] * shape[1]
-    for name, _ in _LAYOUT_OBJ:
-        fields.setdefault(name, _Tab([], dtype))
-    fields["bg_cube"] = None  # unreachable for BG_SOLID scenes
+    fields["bg_cube"] = None  # unreachable: skybox lookups are deferred
     return SimpleNamespace(**fields)
 
 
-# deferred-skybox K-slot budget for the stack-DFS loop regime: each
-# lane keeps its first K effective (nonzero-throughput) miss events;
-# lanes with more overflow to an exact lax.cond jnp recompute of the
-# whole launch block, so K trades kernel outputs (7*K lane blocks)
-# against overflow probability.  Misses happen only where a live
-# branch escapes the scene, so closed scenes never overflow and open
-# scenes rarely exceed a handful per lane.
-MISS_SLOTS = int(os.environ.get("RAYTRACE_TPU_MEGAKERNEL_MISS_SLOTS",
-                                "8"))
-
-
-def _n_miss_records(spec: SceneSpec) -> int:
-    """Miss records the radiance chain emits for a skybox scene — must
-    equal the records it actually appends, because every declared
-    kernel output MUST be written (an unwritten output is undefined
-    memory on real TPU that the post-pass would read as garbage miss
-    masks).  Linear chains (unrolled or loop form) append ONE merged
-    record — a live linear lane misses at most once, then it is dead.
-    Small fan-out scenes run the static DFS with one record per tree
-    node (preorder, radiance_tree_v); loop-regime fan-out scenes emit
-    the K bounded miss slots (+ the separate overflow output).
-    """
-    from raytrace_tpu.render.integrator import (radiance_tree_loop_v,
-                                                radiance_tree_v,
-                                                tree_nodes)
-
-    if spec.bg_type == BG_SOLID:
-        return 0
-    fn = _radiance_fn(spec)
-    if fn is radiance_tree_v:
-        return tree_nodes(spec)
-    if fn is radiance_tree_loop_v:
-        return MISS_SLOTS
-    return 1
-
-
-def _has_overflow_out(spec: SceneSpec) -> bool:
-    """Whether the kernel emits the K-slot overflow mask output (only
-    the loop-regime deferred skybox needs it)."""
-    from raytrace_tpu.render.integrator import radiance_tree_loop_v
-
-    return (spec.bg_type != BG_SOLID
-            and _radiance_fn(spec) is radiance_tree_loop_v)
-
-
-def _radiance_fn(spec: SceneSpec):
-    """The shape-agnostic radiance chain for this scene: the linear
-    level loop for fan-out <= 1; small fan-out trees statically inlined
-    (radiance_tree_v); big trees as the stack-DFS loop
-    (radiance_tree_loop_v, O(1) program size).
-
-    LARGE fan-out scenes always take the loop: the static DFS would
-    inline ``tree_nodes`` copies of the in-kernel table fold — the
-    exact Mosaic program-size blowup the linear regime's fori_loop form
-    exists to avoid (PERF.md "Large scenes") — while the loop traces
-    the fold once."""
-    from raytrace_tpu.render.integrator import (radiance_linear_v,
-                                                radiance_tree_loop_v,
-                                                radiance_tree_v,
-                                                tree_nodes)
-    if spec.children_per_ray <= 1:
-        return radiance_linear_v
-    n_live = sum(1 for t in spec.shape_type if t >= 0)
-    if (n_live <= LARGE_SCENE_THRESHOLD
-            and tree_nodes(spec) <= TREE_NODE_BUDGET):
-        return radiance_tree_v
-    return radiance_tree_loop_v
-
-
-def _kernel(params_ref, sched_ref, *rest, spec: SceneSpec, seed: int,
-            shapes, large_meta=None):
-    from raytrace_tpu.ops import intersect
+def _kernel(params_ref, pix_ref, piy_ref, aa_ref, cam_ref, *outs,
+            spec: SceneSpec, seed: int, shapes):
     from raytrace_tpu.render.integrator import (primary_rays,
-                                                radiance_linear_loop_v,
-                                                radiance_linear_v,
-                                                radiance_tree_loop_v)
+                                                radiance_linear_v)
 
-    if large_meta is not None:
-        from raytrace_tpu.ops.intersect_inline import InlineCtx
-        (tab_ref, mat_ref, ids_ref, rng_ref, bnd_ref,
-         pix_ref, piy_ref, aa_ref, cam_ref, *outs) = rest
-        meta = dict(large_meta)
-        if meta.pop("use_gather"):
-            ctx = InlineCtx(tab_ref, None, ids_ref, rng_ref, bnd_ref,
-                            matT_ref=mat_ref, **meta)
-        else:
-            ctx = InlineCtx(tab_ref, mat_ref, ids_ref, rng_ref, bnd_ref,
-                            **meta)
-    else:
-        pix_ref, piy_ref, aa_ref, cam_ref, *outs = rest
-        ctx = None
-
-    out_x, out_y, out_z = outs[:3]
     data = _unpack_params(params_ref, shapes, jnp.float32)
-    # installing the inline ctx is a trace-time act: while the radiance
-    # chain below traces, every closest_hit / occluded_v folds over the
-    # VMEM table refs instead of the (absent) SMEM per-object scalars
-    prev = intersect.set_inline_ctx(ctx) if ctx is not None else None
-    try:
-        ro, rd, k1, k2 = primary_rays(data, spec, pix_ref[...],
-                                      piy_ref[...], aa_ref[...],
-                                      cam_ref[...], seed)
-        fn = _radiance_fn(spec)
-        if spec.bg_type != BG_SOLID and fn is radiance_tree_loop_v:
-            # skybox x stack-DFS loop (r5): K bounded miss slots per
-            # lane + overflow mask; the post-pass adds tp * skybox(rd)
-            # per slot and lax.cond-recomputes overflowed blocks
-            n_rec = _n_miss_records(spec)
-            _tree_loop_scratch(data, spec, ro, rd, k1, k2, sched_ref,
-                               out_x, out_y, out_z,
-                               miss_outs=outs[3: 3 + 7 * n_rec],
-                               overflow_out=outs[3 + 7 * n_rec],
-                               k_slots=n_rec)
-        elif spec.bg_type != BG_SOLID:
-            # skybox: the per-lane bilinear gather cannot run on VMEM
-            # blocks (faces exceed VMEM; no per-lane gather in Mosaic),
-            # so the kernel defers background shading — miss events
-            # stream out (ONE merged record for linear chains, one per
-            # node for the static tree DFS) and a fused jnp post-pass
-            # (radiance_lanes) adds tp * skybox(rd)
-            if ctx is not None and spec.children_per_ray <= 1:
-                # large linear skybox: the O(1) loop form carries the
-                # merged miss record instead of unrolling the table
-                # fold per level (ADVICE r4 #3)
-                fn = radiance_linear_loop_v
-            recs: list = []
-            rad = fn(data, spec, ro, rd, k1, k2, miss_records=recs)
-            for li, (miss, mrd, mtp) in enumerate(recs):
-                o = outs[3 + 7 * li: 3 + 7 * (li + 1)]
-                o[0][...] = jnp.where(miss, 1.0, 0.0).astype(jnp.float32)
-                o[1][...], o[2][...], o[3][...] = mrd.x, mrd.y, mrd.z
-                o[4][...], o[5][...], o[6][...] = mtp.x, mtp.y, mtp.z
-            out_x[...] = rad.x
-            out_y[...] = rad.y
-            out_z[...] = rad.z
-        elif fn is radiance_tree_loop_v:
-            _tree_loop_scratch(data, spec, ro, rd, k1, k2, sched_ref,
-                               out_x, out_y, out_z)
-        else:
-            if ctx is not None and spec.children_per_ray <= 1:
-                # large regime: one traced level body (fori_loop)
-                # instead of max_depth+2 inlined copies of the table
-                # fold — O(1) program size keeps the Mosaic compile
-                # tractable
-                fn = radiance_linear_loop_v
-            rad = fn(data, spec, ro, rd, k1, k2)
-            out_x[...] = rad.x
-            out_y[...] = rad.y
-            out_z[...] = rad.z
-    finally:
-        if ctx is not None:
-            intersect.set_inline_ctx(prev)
-
-
-def _tree_loop_scratch(data, spec, ro, rd, k1, k2, sched_ref,
-                       out_x, out_y, out_z, miss_outs=None,
-                       overflow_out=None, k_slots: int = 0):
-    """The stack-DFS tree loop with the stack in mutable VMEM scratch —
-    the Mosaic-lowering twin of ``integrator.radiance_tree_loop_v``
-    (whose functional carry form needs ``dynamic_update_slice`` on
-    values, unimplemented in Mosaic).  Same node body
-    (``integrator.tree_loop_node``), same visit order, same RNG stream
-    identities; only the stack plumbing differs: pops/pushes are
-    dynamic-indexed ref reads/writes, pushes run under ``pl.when``, and
-    the radiance accumulator is scratch too.  The DFS schedule rides
-    SMEM (kernels cannot capture array constants); one scalar read per
-    node visit.
-
-    ``miss_outs`` + ``k_slots``: deferred-skybox K-slot accumulation
-    (the scratch twin of radiance_tree_loop_v's carry form) — each
-    lane's first K effective misses land in K scratch slots, copied to
-    the 7*K ``miss_outs`` refs at the end; ``overflow_out`` gets 1.0 on
-    lanes whose miss count exceeded K (the caller recomputes those)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from raytrace_tpu.render.integrator import (tree_loop_entry,
-                                                tree_loop_node,
-                                                tree_loop_stack)
-
-    dtype = ro.x.dtype
-    lane_shape = ro.x.shape
-    m, levels, n_nodes, cap = tree_loop_stack(spec)
-    defer = miss_outs is not None
-
-    def run(acc_ref, *rest):
-        if defer:
-            cnt_ref, miss_ref, *stack_refs = rest
-            miss_ref[...] = jnp.zeros((7 * k_slots,) + lane_shape, dtype)
-            cnt_ref[...] = jnp.zeros(lane_shape, dtype)
-        else:
-            stack_refs = rest
-        one = jnp.ones(lane_shape, dtype)
-        root = tree_loop_entry(ro, rd, one, V3(one, one, one), one,
-                               k1, k2, dtype)
-        for s, v in zip(stack_refs, root):
-            s[0] = v
-        acc_ref[...] = jnp.zeros((3,) + lane_shape, dtype)
-
-        def body(i, sp):
-            sp = sp - 1
-            entry = tuple(s[sp] for s in stack_refs)
-            depth = sched_ref[0, i]
-            if defer:
-                contrib, virt, (miss, mrd, mtp) = tree_loop_node(
-                    data, spec, m, entry, depth, defer_bg=True)
-                eff = miss & ((jnp.abs(mtp.x) + jnp.abs(mtp.y)
-                               + jnp.abs(mtp.z)) > 0)
-                cnt = cnt_ref[...]
-                vals = (jnp.ones(lane_shape, dtype), mrd.x, mrd.y,
-                        mrd.z, mtp.x, mtp.y, mtp.z)
-                for j in range(k_slots):
-                    take = eff & (cnt == float(j))
-                    for c in range(7):
-                        miss_ref[7 * j + c] = jnp.where(
-                            take, vals[c], miss_ref[7 * j + c])
-                cnt_ref[...] = cnt + jnp.where(eff, 1.0, 0.0)
-            else:
-                contrib, virt = tree_loop_node(data, spec, m, entry,
-                                               depth)
-            acc_ref[0] += contrib.x
-            acc_ref[1] += contrib.y
-            acc_ref[2] += contrib.z
-            interior = depth < levels - 1
-
-            @pl.when(interior)
-            def _():
-                # child j lands at sp + (m-1-j): popped in preorder
-                for j, centry in enumerate(virt):
-                    idx = sp + (m - 1 - j)
-                    for s, v in zip(stack_refs, centry):
-                        s[idx] = v
-
-            return jnp.where(interior, sp + m, sp)
-
-        jax.lax.fori_loop(0, n_nodes, body, jnp.int32(1))
-        out_x[...] = acc_ref[0]
-        out_y[...] = acc_ref[1]
-        out_z[...] = acc_ref[2]
-        if defer:
-            for j in range(7 * k_slots):
-                miss_outs[j][...] = miss_ref[j]
-            overflow_out[...] = jnp.where(cnt_ref[...] > float(k_slots),
-                                          1.0, 0.0).astype(jnp.float32)
-
-    entry_dtypes = (dtype,) * 11 + (jnp.uint32, jnp.uint32)
-    extra = ((pltpu.VMEM(lane_shape, dtype),
-              pltpu.VMEM((7 * k_slots,) + lane_shape, dtype))
-             if defer else ())
-    pl.run_scoped(
-        run,
-        pltpu.VMEM((3,) + lane_shape, dtype),
-        *extra,
-        *(pltpu.VMEM((cap,) + lane_shape, dt) for dt in entry_dtypes))
+    ro, rd, k1, k2 = primary_rays(data, spec, pix_ref[...], piy_ref[...],
+                                  aa_ref[...], cam_ref[...], seed)
+    if spec.bg_type == BG_SOLID:
+        rad = radiance_linear_v(data, spec, ro, rd, k1, k2)
+    else:
+        # skybox: the per-lane bilinear texture gather stays out of the
+        # kernel — ONE merged miss record streams out (a live linear
+        # lane misses at most once) and the post-pass in
+        # _radiance_lanes_fwd_kernel adds tp * skybox(rd)
+        recs: list = []
+        rad = radiance_linear_v(data, spec, ro, rd, k1, k2,
+                                miss_records=recs)
+        ((miss, mrd, mtp),) = recs
+        o = outs[3:]
+        o[0][...] = jnp.where(miss, 1.0, 0.0).astype(jnp.float32)
+        o[1][...], o[2][...], o[3][...] = mrd.x, mrd.y, mrd.z
+        o[4][...], o[5][...], o[6][...] = mtp.x, mtp.y, mtp.z
+    outs[0][...] = rad.x
+    outs[1][...] = rad.y
+    outs[2][...] = rad.z
 
 
 def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
-                   seed: int) -> V3:
-    """Per-lane radiance through the fused Pallas pipeline, with a
-    custom VJP so ``jax.grad`` works through it: the forward pass runs
-    the fused kernel; the backward pass re-traces the *jnp* wavefront
-    path (the same elementwise math — see module docstring) and
-    differentiates that.  Scene-parameter gradients therefore match the
-    jnp path's gradients exactly while forward rendering keeps the
-    megakernel speed.
+                   seed: int, *, interpret: bool = False) -> V3:
+    """Per-lane radiance through the fused kernel, with a custom VJP so
+    ``jax.grad`` works through it: the forward pass runs the kernel; the
+    backward pass re-traces the *jnp* path (the same elementwise math —
+    see module docstring) and differentiates that.  Scene-parameter
+    gradients therefore match the jnp path's gradients exactly.
 
     pix/piy/aa/cam: (N,) integer identity arrays (any int dtype).
-    Returns a V3 of (N,) f32 linear radiance — bit-compatible with the
-    jnp path (same traced ops, same order).
+    Returns a V3 of (N,) f32 linear radiance.  ``interpret`` runs the
+    kernel through the Pallas interpreter (tests on the CPU).
     """
-    out = _radiance_lanes_vjp(data, spec, pix, piy, aa, cam, seed)
+    out = _radiance_lanes_vjp(data, spec, pix, piy, aa, cam, seed,
+                              interpret)
     return V3(*out)
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(1, 6))
-def _radiance_lanes_vjp(data, spec, pix, piy, aa, cam, seed):
-    v = _radiance_lanes_fwd_kernel(data, spec, pix, piy, aa, cam, seed)
+@partial(jax.custom_vjp, nondiff_argnums=(1, 6, 7))
+def _radiance_lanes_vjp(data, spec, pix, piy, aa, cam, seed, interpret):
+    v = _radiance_lanes_fwd_kernel(data, spec, pix, piy, aa, cam, seed,
+                                   interpret)
     return (v.x, v.y, v.z)
 
 
 def _jnp_reference(data, spec, pix, piy, aa, cam, seed):
-    from raytrace_tpu.render.integrator import primary_rays
+    from raytrace_tpu.render.integrator import (primary_rays,
+                                                radiance_linear_v)
     ro, rd, k1, k2 = primary_rays(data, spec, pix, piy, aa, cam, seed)
-    v = _radiance_fn(spec)(data, spec, ro, rd, k1, k2)
+    v = radiance_linear_v(data, spec, ro, rd, k1, k2)
     return (v.x, v.y, v.z)
 
 
-def _vjp_fwd(data, spec, pix, piy, aa, cam, seed):
-    v = _radiance_lanes_fwd_kernel(data, spec, pix, piy, aa, cam, seed)
+def _vjp_fwd(data, spec, pix, piy, aa, cam, seed, interpret):
+    v = _radiance_lanes_fwd_kernel(data, spec, pix, piy, aa, cam, seed,
+                                   interpret)
     return (v.x, v.y, v.z), (data, pix, piy, aa, cam)
 
 
-def _vjp_bwd(spec, seed, res, g):
+def _vjp_bwd(spec, seed, interpret, res, g):
     data, pix, piy, aa, cam = res
     _, vjp = jax.vjp(
         lambda d: _jnp_reference(d, spec, pix, piy, aa, cam, seed), data)
@@ -658,165 +234,50 @@ _radiance_lanes_vjp.defvjp(_vjp_fwd, _vjp_bwd)
 
 
 def _radiance_lanes_fwd_kernel(data: SceneData, spec: SceneSpec, pix, piy,
-                               aa, cam, seed: int) -> V3:
+                               aa, cam, seed: int, interpret: bool) -> V3:
     """The raw fused-kernel launch (no AD plumbing)."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pltr
 
-    n_live = sum(1 for t in spec.shape_type if t >= 0)
-    large = n_live > LARGE_SCENE_THRESHOLD
-    block_rows = (
-        (LARGE_BLOCK_ROWS if spec.children_per_ray <= 1
-         else _large_tree_block_rows(spec)) if large
-        else BLOCK_ROWS if spec.children_per_ray <= 1
-        else _tree_block_rows())
+    assert fits(spec, data.prim_p.dtype), "scene outside the kernel regime"
     n = pix.shape[0]
-    rows = -(-n // LANE)
-    rows_pad = -(-rows // block_rows) * block_rows
-    total = rows_pad * LANE
+    total = -(-n // BLOCK_LANES) * BLOCK_LANES
 
     def block(a):
-        a = a.astype(jnp.uint32)
-        a = jnp.concatenate([a, jnp.zeros(total - n, jnp.uint32)])
-        return a.reshape(rows_pad, LANE)
+        return jnp.pad(a.astype(jnp.uint32), (0, total - n))
 
-    params = _pack_params(data, large)
-    shapes = _leaf_shapes(data, large)
-    grid = (rows_pad // block_rows,)
-
-    # large regime: the primitive/material tables + chunk metadata ride
-    # as whole-array VMEM/SMEM inputs for the in-kernel fold
-    if large:
-        from raytrace_tpu.ops import intersect_inline as ii
-        from raytrace_tpu.ops import intersect_pallas as ip
-        from raytrace_tpu.ops.intersect import (_packed_tables,
-                                                packed_object_table)
-
-        table, n_sph_pad, idmap = _packed_tables(data, spec)
-        ck = ip._OBJ_CHUNK
-        n_chunks = table.shape[0] // ck
-        bounds = ip._chunk_bounds(table, n_sph_pad, n_chunks)
-        mat = packed_object_table(data, spec)
-        # row-aligned material table: row r = packed row of gid ids[r]
-        # (pad rows borrow object 0's row; never selected — ids -1)
-        mat_rows = jnp.take(mat, jnp.maximum(idmap, 0),
-                            axis=0).astype(jnp.float32)
-        use_gather = not _env_flag("RAYTRACE_TPU_NO_GATHER_RESOLVE")
-        if use_gather:
-            # transposed (22, R128) table for the dynamic-gather
-            # resolve (intersect_inline._select_rows_gather); same
-            # bytes as the row-aligned layout it replaces
-            n_rows = table.shape[0]
-            n_rows_pad = -(-n_rows // LANE) * LANE
-            mat_in = jnp.zeros((mat_rows.shape[1], n_rows_pad),
-                               jnp.float32).at[:, :n_rows].set(mat_rows.T)
-            # miss lanes resolve gid 0's packed row (gid 0 heads its
-            # type partition; a dead object 0 falls back to row 0 —
-            # miss-lane values are masked out of shading either way)
-            from raytrace_tpu.scene.schema import SHAPE_PLANE
-            row0 = (n_sph_pad if spec.shape_type
-                    and spec.shape_type[0] == SHAPE_PLANE else 0)
-        else:
-            mat_in, n_rows_pad, row0 = mat_rows, 0, 0
-        large_inputs = [table.astype(jnp.float32), mat_in,
-                        idmap.reshape(n_chunks, ck),
-                        ii.chunk_id_ranges(idmap, ck), bounds]
-        large_specs = [
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ]
-        large_meta = dict(chunk=ck, n_sph_chunks=n_sph_pad // ck,
-                          n_chunks=n_chunks,
-                          cull=not _env_flag("RAYTRACE_TPU_NO_CULL"),
-                          use_gather=use_gather, row0=row0,
-                          n_rows_pad=n_rows_pad)
-    else:
-        large_inputs, large_specs, large_meta = [], [], None
-
-    # DFS schedule for the stack-loop regime ((1, 1) dummy otherwise —
-    # the kernel signature stays uniform)
-    from raytrace_tpu.render.integrator import (_dfs_schedule,
-                                                radiance_tree_loop_v,
-                                                tree_loop_stack)
-    if _radiance_fn(spec) is radiance_tree_loop_v:
-        m, levels, _, _ = tree_loop_stack(spec)
-        depths, _ = _dfs_schedule(m, levels)
-        sched = jnp.asarray(np.asarray(depths, np.int32)[None, :])
-    else:
-        sched = jnp.zeros((1, 1), jnp.int32)
-
-    lane_spec = pl.BlockSpec((block_rows, LANE), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
+    params = _pack_params(data)
+    lane_spec = pl.BlockSpec((BLOCK_LANES,), lambda i: (i,))
     # inside shard_map the output varies over the same mesh axes as the
     # lane-id inputs; vma must be declared on the out avals
     vma = getattr(jax.typeof(pix), "vma", frozenset())
-    out_shape = jax.ShapeDtypeStruct((rows_pad, LANE), jnp.float32, vma=vma)
-
-    # lane blocks are independent: the grid axis is truly parallel
-    sem = os.environ.get("RAYTRACE_TPU_MEGAKERNEL_SEMANTICS", "parallel")
-    try:
-        compiler_params = pltpu.CompilerParams(
-            dimension_semantics=(sem,))
-    except TypeError:  # older/newer field sets
-        compiler_params = None
-
-    # skybox scenes stream (miss, rd, tp) records out of the kernel
-    # (one merged for linear chains, per node for the static tree,
-    # K slots + overflow mask for the loop regime)
-    n_rec = _n_miss_records(spec)
-    has_ov = _has_overflow_out(spec)
-    n_out = 3 + 7 * n_rec + (1 if has_ov else 0)
+    out_shape = jax.ShapeDtypeStruct((total,), jnp.float32, vma=vma)
+    n_out = 3 if spec.bg_type == BG_SOLID else 10
 
     fn = pl.pallas_call(
-        partial(_kernel, spec=spec, seed=seed, shapes=shapes,
-                large_meta=large_meta),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, sched.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            *large_specs,
-            lane_spec, lane_spec, lane_spec, lane_spec,
-        ],
+        partial(_kernel, spec=spec, seed=seed, shapes=_leaf_shapes(data)),
+        grid=(total // BLOCK_LANES,),
+        in_specs=[pl.BlockSpec(params.shape, lambda i: (0,)),
+                  lane_spec, lane_spec, lane_spec, lane_spec],
         out_specs=(lane_spec,) * n_out,
         out_shape=(out_shape,) * n_out,
-        interpret=_env_flag("RAYTRACE_TPU_MEGAKERNEL_INTERPRET"),
-        **({"compiler_params": compiler_params} if compiler_params else {}),
+        backend="triton",
+        compiler_params=pltr.CompilerParams(num_warps=NUM_WARPS,
+                                            num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="render_linear",
     )
-    ox, oy, oz, *rec = fn(params, sched, *large_inputs, block(pix),
-                          block(piy), block(aa), block(cam))
-    unb = lambda a: a.reshape(-1)[:n]  # noqa: E731
-    rad = V3(unb(ox), unb(oy), unb(oz))
-    if n_rec:
-        # deferred background: fused jnp post-pass over the miss events
-        # (the only stage with a texture gather; same jit region as the
-        # kernel launch, so XLA fuses the masked adds)
+    ox, oy, oz, *rec = fn(params, block(pix), block(piy), block(aa),
+                          block(cam))
+    rad = V3(ox[:n], oy[:n], oz[:n])
+    if rec:
+        # deferred background: fused jnp post-pass over the miss record
+        # (the only stage with a texture gather)
         from raytrace_tpu.models.backgrounds import background_color_v
-        for li in range(n_rec):
-            miss, rdx, rdy, rdz, tpx, tpy, tpz = (
-                unb(a) for a in rec[7 * li: 7 * (li + 1)])
-            bg = background_color_v(data, spec, V3(rdx, rdy, rdz))
-            m = miss > 0.5
-            rad = V3(rad.x + jnp.where(m, tpx * bg.x, 0.0),
-                     rad.y + jnp.where(m, tpy * bg.y, 0.0),
-                     rad.z + jnp.where(m, tpz * bg.z, 0.0))
-    if has_ov:
-        # exactness guarantee for the K-slot encoding: any lane whose
-        # miss count exceeded K flags overflow, and the whole launch
-        # block is recomputed through the jnp path (same math, inline
-        # backgrounds).  lax.cond executes the fallback only when it
-        # actually overflows — closed scenes never do, open scenes
-        # rarely exceed K effective misses per lane.
-        overflow = unb(rec[7 * n_rec]) > 0.5
-
-        def _fallback(_):
-            return V3(*_jnp_reference(data, spec, pix, piy, aa, cam,
-                                      seed))
-
-        rad = jax.lax.cond(jnp.any(overflow), _fallback,
-                           lambda r: r, rad)
+        miss, rdx, rdy, rdz, tpx, tpy, tpz = (a[:n] for a in rec)
+        bg = background_color_v(data, spec, V3(rdx, rdy, rdz))
+        m = miss > 0.5
+        rad = V3(rad.x + jnp.where(m, tpx * bg.x, 0.0),
+                 rad.y + jnp.where(m, tpy * bg.y, 0.0),
+                 rad.z + jnp.where(m, tpz * bg.z, 0.0))
     return rad

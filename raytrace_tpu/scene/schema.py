@@ -1,6 +1,6 @@
 """Scene representation: a padded structure-of-arrays pytree.
 
-TPU-native re-design of the reference's scene model (``src/scene.rs``,
+Data-parallel re-design of the reference's scene model (``src/scene.rs``,
 SURVEY.md §2 #8, #13-15).  The reference stores a ``Vec<Object>`` of boxed
 trait objects — pointer-chasing polymorphism that cannot be vectorized.
 Here the scene is two pieces:

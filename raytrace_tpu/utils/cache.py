@@ -1,9 +1,9 @@
 """Persistent XLA compilation cache.
 
-Wavefront programs compile in seconds on CPU but can take *minutes*
-through remote-compile TPU toolchains; the persistent cache makes every
-shape a one-time cost per machine.  Called by the CLI, the bench
-harness, and the driver entry points.
+Wavefront programs and the fused kernel take seconds to compile per
+shape; the persistent cache makes every shape a one-time cost per
+machine.  Called by the CLI, the bench harness, ``__graft_entry__.py``
+and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -18,12 +18,12 @@ _DEFAULT_DIR = os.path.join(
 def enable_compile_cache(cache_dir: str | None = None) -> str:
     """Enable JAX's persistent compilation cache (idempotent).
 
-    Priority: explicit arg > $JAX_COMPILATION_CACHE_DIR > repo-local
+    Priority: $JAX_COMPILATION_CACHE_DIR > explicit arg > repo-local
     ``.jax_cache``.  Returns the directory used.
     """
     import jax
 
-    d = (cache_dir or os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    d = (os.environ.get("JAX_COMPILATION_CACHE_DIR") or cache_dir
          or _DEFAULT_DIR)
     os.makedirs(d, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", d)

@@ -1,7 +1,7 @@
 """Profiler trace annotations for the render phases (SURVEY.md §5.1).
 
 The reference has no instrumentation at all (its only console output is
-parser warnings, serialize.rs:452-456); the TPU-native framework marks
+parser warnings, serialize.rs:452-456); the framework marks
 each pipeline phase with ``jax.named_scope`` so compiled-program
 profiles (``--profile`` / ``jax.profiler.trace``) attribute device time
 to ray-gen / intersect / shade / background / grad-psum instead of one

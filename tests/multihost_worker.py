@@ -52,13 +52,13 @@ def main():
     from raytrace_tpu.parallel.multihost import (render_rows_multihost,
                                                  render_to_bmp_multihost)
 
-    ref = os.environ.get("RAYTRACE_TPU_REFERENCE_DIR", "/root/reference")
-    base = load_scene_file(os.path.join(ref, "test_scene.txt"),
-                           dtype=jnp.float32)
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "..", "examples", "test_scene.txt")
+    base = load_scene_file(golden, dtype=jnp.float32)
     # (9, 7): odd W and H with pad rows — whole-row sharding must
-    # render ANY (W, H, process x device) combination (VERDICT r4
-    # missing #3; odd strictly generalizes the aligned case, and the
-    # single-process odd-geometry test covers more shapes cheaply)
+    # render ANY (W, H, process x device) combination (odd strictly
+    # generalizes the aligned case, and the single-process odd-geometry
+    # test covers more shapes cheaply)
     for w, h in ((9, 7),):
         sc = dataclasses.replace(
             base, spec=dataclasses.replace(base.spec, width=w, height=h))

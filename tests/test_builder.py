@@ -9,9 +9,9 @@ from raytrace_tpu.scene.builder import build_scene, camera_look_at, camera_matri
 from raytrace_tpu.scene.schema import (
     MAT_INDIRECT_PHONG, SHAPE_PLANE, SHAPE_SPHERE)
 
-from conftest import reference_path
+from conftest import GOLDEN_SCENE
 
-REF_SCENE = reference_path("test_scene.txt").read_text()
+REF_SCENE = GOLDEN_SCENE.read_text()
 
 
 def test_reference_scene_layout():

@@ -9,7 +9,7 @@ import numpy as np
 
 from raytrace_tpu.io.bmp import read_bmp
 
-from conftest import reference_path
+from conftest import GOLDEN_SCENE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -17,7 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _run(args, cwd):
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    env["RAYTRACE_TPU_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
     return subprocess.run(
         [sys.executable, "-m", "raytrace_tpu.cli", *args],
         cwd=cwd, env=env, capture_output=True, text=True, timeout=520)
@@ -25,7 +25,7 @@ def _run(args, cwd):
 
 def test_cli_end_to_end(tmp_path):
     out = tmp_path / "render.bmp"
-    r = _run([str(reference_path("test_scene.txt")), "-o", str(out),
+    r = _run([str(GOLDEN_SCENE), "-o", str(out),
               "--width", "16", "--height", "12", "--spp", "2", "-q"],
              cwd=REPO)
     assert r.returncode == 0, r.stderr
@@ -33,21 +33,21 @@ def test_cli_end_to_end(tmp_path):
     assert img.shape == (12, 16, 3)
     assert img.max() > 0  # something rendered
 
-    # header matches the reference writer at width-independent offsets
+    # the reference writer's 122-byte header (bmp.rs:10-61) at its
+    # width-independent offsets
     blob = open(out, "rb").read()
-    ref = reference_path("out.bmp").read_bytes()[:122]
-    assert blob[:2] == ref[:2] == b"BM"
-    assert blob[10:14] == ref[10:14]        # pixel offset 0x7A
-    assert blob[14:18] == ref[14:18]        # DIB size 0x6C
-    assert blob[26:30] == ref[26:30]        # planes + bpp
-    assert blob[0x46:0x4A] == ref[0x46:0x4A] == b"BGRs"
+    assert blob[:2] == b"BM"
+    assert struct.unpack("<I", blob[10:14])[0] == 0x7A   # pixel offset
+    assert struct.unpack("<I", blob[14:18])[0] == 0x6C   # DIB size
+    assert struct.unpack("<HH", blob[26:30]) == (1, 24)  # planes + bpp
+    assert blob[0x46:0x4A] == b"BGRs"
     w = struct.unpack("<i", blob[18:22])[0]
     assert w == 16
 
 
 def test_cli_shard_flag_matches(tmp_path):
     a, b = tmp_path / "a.bmp", tmp_path / "b.bmp"
-    common = [str(reference_path("test_scene.txt")), "--width", "8",
+    common = [str(GOLDEN_SCENE), "--width", "8",
               "--height", "8", "--spp", "2", "--seed", "4", "-q"]
     r1 = _run([*common, "-o", str(a)], cwd=REPO)
     r2 = _run([*common, "-o", str(b), "--shard"], cwd=REPO)
@@ -74,7 +74,7 @@ def test_cli_bad_scene_error(tmp_path):
 def test_cli_checkpoint_resume(tmp_path):
     out = tmp_path / "r.bmp"
     ck = tmp_path / "state.npz"
-    common = [str(reference_path("test_scene.txt")), "--width", "8",
+    common = [str(GOLDEN_SCENE), "--width", "8",
               "--height", "8", "--spp", "4", "--seed", "1", "-q",
               "--checkpoint", str(ck)]
     r1 = _run([*common, "-o", str(out)], cwd=REPO)

@@ -7,9 +7,9 @@ import pytest
 from raytrace_tpu.scene import dsl
 
 
-from conftest import reference_path
+from conftest import GOLDEN_SCENE
 
-REF_SCENE = reference_path("test_scene.txt").read_text()
+REF_SCENE = GOLDEN_SCENE.read_text()
 
 
 def test_parses_reference_scene_verbatim():

@@ -21,10 +21,10 @@ from raytrace_tpu.render.integrator import render_image
 from raytrace_tpu.scene import dsl
 from raytrace_tpu.scene.builder import build_scene
 
-from conftest import reference_path
+from conftest import GOLDEN_SCENE, reference_path
 
 GOLDEN = str(reference_path("out.bmp"))
-REF_SCENE = reference_path("test_scene.txt").read_text()
+REF_SCENE = GOLDEN_SCENE.read_text()
 
 
 @pytest.mark.slow
@@ -76,10 +76,9 @@ def test_golden_statistical_parity():
 
 @pytest.mark.slow
 def test_golden_fullres_bytediff():
-    """The repo's flagship acceptance artifact, automated (VERDICT r2
-    #9): render the FULL golden config (800 x 800, 1024 spp by default)
-    and byte-diff the sRGB output against the reference's committed
-    ``out.bmp`` (PERF.md "Golden-image parity" table).
+    """The repo's flagship acceptance artifact, automated: render the
+    FULL golden config (800 x 800, 1024 spp by default) and byte-diff
+    the sRGB output against the reference's committed ``out.bmp``.
 
     The reference RNG is time-seeded (main.rs:43) so bitwise equality is
     impossible; the acceptance criterion is *noise-limited*: the byte
@@ -91,8 +90,8 @@ def test_golden_fullres_bytediff():
     the full 1024 spp would take hours — the suite default is 48 spp
     (the noise-limited criterion is spp-invariant: both our renders AND
     the noise floor scale together).  ``RAYTRACE_TPU_GOLDEN_SPP``
-    overrides; the full-1024-spp TPU record is produced by
-    ``tools/golden_check.py`` (same comparisons, real chip, ~3 min).
+    overrides; the full-1024-spp record is produced by
+    ``tools/golden_check.py`` (same comparisons, on a GPU).
     """
     spp = int(os.environ.get("RAYTRACE_TPU_GOLDEN_SPP", "48"))
     ref = read_bmp(GOLDEN).astype(np.int32)          # (800, 800, 3) sRGB

@@ -3,7 +3,7 @@
 The reference has a latent NaN path — the indirect-specular half-vector
 normalizes ``dir - ray.direction`` with the *shadowed* ray, which is 0
 when they coincide (raytrace.rs:108,115) — and no sanitizers to catch
-it.  The TPU-native build keeps that path out by construction
+it.  This build keeps that path out by construction
 (models/materials.py guards every normalize/rsqrt/div with where-traps);
 this test turns on JAX's NaN debugger, which re-runs every primitive
 un-jitted and raises on any NaN output, and drives the forward render
@@ -24,10 +24,10 @@ import pytest
 from raytrace_tpu.render.integrator import sample_pixels
 from raytrace_tpu.scene.builder import load_scene_file
 
-from conftest import reference_path, repo_path
+from conftest import GOLDEN_SCENE, repo_path
 
 SCENES = [
-    str(reference_path("test_scene.txt")),      # indirect-only golden
+    str(GOLDEN_SCENE),      # indirect-only golden
     # all-materials showcase: the slowest eager debug_nans run — slow
     # tier (golden + cornell keep every NaN-prone path reachable fast)
     pytest.param(str(repo_path("examples", "materials_showcase.txt")),

@@ -17,9 +17,9 @@ from raytrace_tpu.parallel.mesh import make_mesh, make_mesh_2d
 from raytrace_tpu.parallel.tile import render_image_sharded
 from raytrace_tpu.optim import loss_and_grad, make_sharded_step
 
-from conftest import reference_path
+from conftest import GOLDEN_SCENE
 
-REF_SCENE = reference_path("test_scene.txt").read_text()
+REF_SCENE = GOLDEN_SCENE.read_text()
 
 
 def _scene(w=16, h=16, dtype=jnp.float64):
@@ -38,11 +38,11 @@ def test_sharded_render_bit_identical():
 
 @pytest.mark.slow
 def test_sharded_render_2d_mesh():
-    # [slow tier — fast twin: the driver's dryrun_multichip executes the
-    # full sharded step on a 2-axis ('dcn','ici') mesh every round]
+    # [slow tier — fast twin: test_sharded_render_nondivisible_pixels
+    # covers the sharded launch on the flat mesh]
     sc = _scene()
-    mesh = make_mesh_2d(n_dcn=2)
-    assert dict(mesh.shape) == {"dcn": 2, "ici": 4}
+    mesh = make_mesh_2d(n_host=2)
+    assert dict(mesh.shape) == {"host": 2, "dev": 4}
     a = render_image(sc, seed=9, spp=2)
     b = render_image_sharded(sc, seed=9, spp=2, mesh=mesh)
     np.testing.assert_array_equal(a, b)
@@ -86,8 +86,8 @@ def test_sharded_grads_match_psum():
 def test_mesh_shapes():
     m = make_mesh()
     assert m.devices.shape == (8,)
-    m2 = make_mesh_2d(n_dcn=4)
-    assert dict(m2.shape) == {"dcn": 4, "ici": 2}
+    m2 = make_mesh_2d(n_host=4)
+    assert dict(m2.shape) == {"host": 4, "dev": 2}
 
 
 def test_sharded_render_large_scene_scan_path():

@@ -44,39 +44,9 @@ def test_ring_empty_miss_rays():
 
 
 @pytest.mark.slow
-def test_scan_hit_kernel_inside_ring_interpret(monkeypatch):
-    # [slow tier — fast twin: test_ring_matches_dense covers the ring
-    # protocol; the Pallas scan kernel has its own parity tests]
-    """The Pallas scan kernel composed with shard_map + ppermute — the
-    exact composition the TPU path runs — exercised in interpret mode
-    on the 8-virtual-device mesh (f32 so ip.usable() is True)."""
-    from raytrace_tpu.ops import intersect_pallas as ip
-
-    monkeypatch.setenv("RAYTRACE_TPU_MEGAKERNEL_INTERPRET", "1")
-    assert ip.usable(jnp.float32)
-
-    sc = make_sphere_field(40, dtype=jnp.float32)
-    n = 256
-    r = np.random.RandomState(11)
-    ro = jnp.asarray(r.randn(n, 3) * 2, jnp.float32)
-    d = r.randn(n, 3)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rd = jnp.asarray(d, jnp.float32)
-
-    ring = make_ring_intersector(sc.spec, make_mesh(), check_vma=False)
-    t, obj, hit = ring(sc.data, ro, rd)
-
-    dense = closest_hit(sc.data, sc.spec, vec.splat(ro), vec.splat(rd))
-    np.testing.assert_array_equal(np.asarray(hit), np.asarray(dense.hit))
-    np.testing.assert_array_equal(np.asarray(obj), np.asarray(dense.obj))
-    np.testing.assert_allclose(np.asarray(t), np.asarray(dense.t),
-                               rtol=2e-6)
-
-
-@pytest.mark.slow
 def test_render_image_ring_matches_dense():
     # [slow tier — fast twin: test_ring_matches_dense covers the ring
-    # protocol; the CLI --shard-objects test covers the driver wiring]
+    # protocol]
     """End-to-end object-sharded render through the public API: the
     huge-scene path (geometry + material tables ring-sharded over the
     mesh) must be bit-identical to the dense single-device render

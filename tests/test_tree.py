@@ -1,6 +1,6 @@
 """DFS tree-walk radiance (integrator.radiance_tree_v): the
-shape-agnostic fan-out path that lets the Pallas megakernel run
-transparent / multi-sample-indirect scenes entirely in VMEM.
+shape-agnostic fan-out form a fused fan-out kernel would trace.  Fan-out
+scenes render through the XLA wavefront (radiance_v).
 
 Correctness contract: the tree walk visits the same virtual-compacted
 child set with the same RNG stream identities as the wavefront
@@ -16,10 +16,9 @@ import jax.numpy as jnp
 import pytest
 
 from raytrace_tpu.render import megakernel
-from raytrace_tpu.render.integrator import (primary_rays,
-                                            radiance_tree_loop_v,
-                                            radiance_tree_v,
-                                            radiance_v, tree_nodes)
+from raytrace_tpu.render.integrator import (primary_rays, radiance_tree_v,
+                                            radiance_v, sample_pixels,
+                                            tree_nodes)
 from raytrace_tpu.scene.builder import load_scene_file
 
 from conftest import repo_path
@@ -62,22 +61,6 @@ def test_tree_matches_wavefront_f64(scene_file):
 
 @pytest.mark.slow
 @pytest.mark.parametrize("scene_file", [SHOWCASE, CORNELL])
-def test_tree_loop_matches_wavefront_f64(scene_file):
-    """Stack-DFS loop (radiance_tree_loop_v) == wavefront at f64
-    roundoff on the same scenes — the loop's one traced node body
-    reproduces the static walk's child set and RNG identities."""
-    sc = _depth(load_scene_file(scene_file, dtype=jnp.float64), 2)
-    pix, piy, aa, cam = _lanes(sc.spec, 256)
-    ro, rd, k1, k2 = primary_rays(sc.data, sc.spec, pix, piy, aa, cam, 5)
-    want = radiance_v(sc.data, sc.spec, ro, rd, k1, k2)
-    got = radiance_tree_loop_v(sc.data, sc.spec, ro, rd, k1, k2)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w),
-                                   rtol=1e-12, atol=1e-13)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("scene_file", [SHOWCASE, CORNELL])
 def test_tree_matches_wavefront_f64_full_depth(scene_file):
     """Full-depth (max_depth=4, 63-node) variant — minutes of cold XLA
     compile, so slow-tier only."""
@@ -101,94 +84,21 @@ def test_tree_nodes_counts():
 
 
 def test_megakernel_fanout_usable(monkeypatch):
-    """The usable() gate admits fan-out scenes within the static node
-    budget, hands bigger trees to the stack-DFS loop while its VMEM
-    stack fits, and rejects only scenes past both."""
-    monkeypatch.setenv("RAYTRACE_TPU_MEGAKERNEL_INTERPRET", "1")
+    """Fan-out scenes are outside the fused kernel's regime: even on a
+    GPU backend they render through the XLA wavefront — sample_pixels
+    never launches the kernel for them."""
+    import jax
+
     sc = load_scene_file(SHOWCASE, dtype=jnp.float32)
-    assert megakernel.usable(sc.data, sc.spec)
-    monkeypatch.setattr(megakernel, "TREE_NODE_BUDGET", 62)
-    assert megakernel.usable(sc.data, sc.spec)   # loop regime takes over
-    monkeypatch.setattr(megakernel, "TREE_LOOP_VMEM_BUDGET", 1024)
+    assert sc.spec.children_per_ray > 1
+    assert not megakernel.fits(sc.spec, jnp.float32)
+    monkeypatch.setattr(megakernel.jax, "default_backend", lambda: "gpu")
     assert not megakernel.usable(sc.data, sc.spec)
-
-
-@pytest.mark.slow
-def test_megakernel_fanout_parity(monkeypatch):
-    """Fused fan-out kernel (interpret mode) == jnp tree walk on the
-    FULL showcase scene (63-node static tree, all four materials, three
-    lights, DoF) — ~35 min of interpret-mode evaluation, slow tier; the
-    fast tier covers the same kernel regime on a small transparent
-    scene (test_megakernel.py::test_static_tree_fanout_parity).
-
-    Same traced ops compiled separately — parity is statistical like
-    the golden-scene megakernel test: FMA contraction can flip
-    silhouette-grazing lanes."""
-    monkeypatch.setenv("RAYTRACE_TPU_MEGAKERNEL_INTERPRET", "1")
-    sc = load_scene_file(SHOWCASE, dtype=jnp.float32)
-    pix, piy, aa, cam = _lanes(sc.spec, 96)
-    got = megakernel.radiance_lanes(sc.data, sc.spec, pix, piy, aa, cam,
-                                    seed=3)
-    ro, rd, k1, k2 = primary_rays(sc.data, sc.spec, pix, piy, aa, cam, 3)
-    want = radiance_tree_v(sc.data, sc.spec, ro, rd, k1, k2)
-    for g, w in zip(got, want):
-        g, w = np.asarray(g), np.asarray(w)
-        close = np.isclose(g, w, rtol=1e-5, atol=1e-6)
-        assert close.mean() > 0.95, f"only {close.mean():.3f} lanes match"
-        np.testing.assert_allclose(g.mean(), w.mean(), rtol=0.05)
-    assert float(np.max(np.asarray(got.x))) > 0.0
-
-
-def test_tree_loop_stack_closed_form():
-    """tree_loop_stack's closed-form node count / stack capacity must
-    equal the enumerated preorder schedule (the closed form exists so
-    megakernel.usable() is O(1), not O(m^levels))."""
-    from raytrace_tpu.render.integrator import _dfs_schedule
-
-    for m in (1, 2, 3, 4):
-        for levels in (2, 3, 4, 5, 6):
-            depths, cap = _dfs_schedule(m, levels)
-            n_nodes = levels if m == 1 else (m ** levels - 1) // (m - 1)
-            assert len(depths) == n_nodes, (m, levels)
-            assert cap == 1 + (levels - 1) * (m - 1), (m, levels, cap)
-
-
-@pytest.mark.slow
-def test_megakernel_showcase_skybox_parity(monkeypatch):
-    """The VERDICT r3 #3 'done' bar: materials_showcase (63-node static
-    tree, all four materials, DoF) with a synthetic SKYBOX renders
-    through the fused kernel (one deferred miss record per tree node)
-    with oracle parity vs the jnp tree walk.  Slow tier: interpret-mode
-    evaluation of 63 node visits x 2 paths."""
-    import dataclasses
-
-    from raytrace_tpu.scene.schema import BG_SKYBOX
-
-    monkeypatch.setenv("RAYTRACE_TPU_MEGAKERNEL_INTERPRET", "1")
-    sc = load_scene_file(SHOWCASE, dtype=jnp.float32)
-    rng = np.random.RandomState(13)
-    sizes = ((3, 5), (4, 4), (2, 2), (4, 3), (3, 3), (5, 5))
-    hmax = max(s[0] for s in sizes)
-    wmax = max(s[1] for s in sizes)
-    cube = np.zeros((6, hmax, wmax, 3), np.float32)
-    for i, (h, w) in enumerate(sizes):
-        cube[i, :h, :w] = rng.rand(h, w, 3)
-    sc = dataclasses.replace(
-        sc,
-        data=dataclasses.replace(sc.data, bg_cube=jnp.asarray(cube)),
-        spec=dataclasses.replace(sc.spec, bg_type=BG_SKYBOX,
-                                 face_sizes=sizes))
-    from raytrace_tpu.render.megakernel import _n_miss_records
-    assert _n_miss_records(sc.spec) == tree_nodes(sc.spec) == 63
-    assert megakernel.usable(sc.data, sc.spec)
-    pix, piy, aa, cam = _lanes(sc.spec, 96)
-    got = megakernel.radiance_lanes(sc.data, sc.spec, pix, piy, aa, cam,
-                                    seed=3)
-    ro, rd, k1, k2 = primary_rays(sc.data, sc.spec, pix, piy, aa, cam, 3)
-    want = radiance_tree_v(sc.data, sc.spec, ro, rd, k1, k2)
-    for g, w in zip(got, want):
-        g, w = np.asarray(g), np.asarray(w)
-        close = np.isclose(g, w, rtol=1e-5, atol=1e-6)
-        assert close.mean() > 0.95, f"only {close.mean():.3f} lanes match"
-        np.testing.assert_allclose(g.mean(), w.mean(), rtol=0.05)
-    assert float(np.max(np.asarray(got.x))) > 0.0
+    calls = []
+    monkeypatch.setattr(megakernel, "radiance_lanes",
+                        lambda *a, **k: calls.append(a))
+    px = jnp.arange(4, dtype=jnp.uint32)
+    sids = jnp.arange(1, dtype=jnp.uint32)
+    jax.make_jaxpr(lambda d: sample_pixels(d, sc.spec, px, px, sids, 3))(
+        sc.data)
+    assert calls == []

@@ -2,22 +2,23 @@
 
 Walks the jaxpr of the full per-lane chain (RNG -> jitter -> camera ->
 ``max_depth + 2`` x (closest-hit + shade) -> background) and counts
-every elementwise VPU op weighted by output element count.  This is the
-*same* traced program the Pallas megakernel runs on VMEM blocks
+every elementwise op weighted by output element count.  This is the
+*same* traced program the fused render kernel runs on its lane blocks
 (render/megakernel.py docstring: one source of truth), so the count is
-the kernel's per-lane arithmetic exactly, not an estimate.
+the kernel's per-lane arithmetic exactly, not an estimate.  It does not
+depend on the hardware.
 
-Used by PERF.md's roofline/MFU section: achieved VPU op/s =
-ops_per_lane x lanes/s (from bench.py's marginal launch time), compared
-against the v5e VPU ceiling.  MXU is idle by design — a raytracer's hot
-ops are 3-vectors, not matmuls — so the relevant ceiling is the VPU's.
+Achieved op/s = ops_per_lane x lanes/s (lanes/s from a timed launch on
+the card); the relevant ceiling is the device's f32 SIMT rate — a
+raytracer's hot ops are 3-vectors, not matmuls, so tensor cores are
+idle by design.
 
 Op weights: every elementwise arith/compare/select/convert = 1 op per
-output element (transcendentals and rsqrt/div occupy multiple VPU
-cycles, so counting them as 1 makes the reported utilization a LOWER
-bound).  Integer ops count too (the RNG is integer arithmetic and runs
-on the same VPU lanes).  Reductions count their input size; shape-only
-ops (reshape/broadcast/slice/convert-free) are 0.
+output element (transcendentals and rsqrt/div take several issue
+slots, so counting them as 1 makes a utilization derived from this a
+LOWER bound).  Integer ops count too (the RNG is integer arithmetic).
+Reductions count their input size; shape-only ops
+(reshape/broadcast/slice/convert-free) are 0.
 """
 
 import os
@@ -28,7 +29,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-REFERENCE_DIR = os.environ.get("RAYTRACE_TPU_REFERENCE_DIR", "/root/reference")
+GOLDEN_SCENE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "examples", "test_scene.txt")
 
 # elementwise primitives: 1 op / output element
 _ELEMENTWISE = {
@@ -109,7 +112,7 @@ def lane_ops(scene_path=None, n=256, dtype=None, verbose=True):
     from raytrace_tpu.scene.builder import load_scene_file
     from raytrace_tpu.render.megakernel import _jnp_reference
 
-    scene_path = scene_path or os.path.join(REFERENCE_DIR, "test_scene.txt")
+    scene_path = scene_path or GOLDEN_SCENE
     sc = load_scene_file(scene_path, dtype=dtype or jnp.float32)
     ids = jnp.zeros(n, jnp.uint32)
 

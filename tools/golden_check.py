@@ -1,8 +1,8 @@
-"""Full-resolution golden byte-diff on the real TPU — the acceptance
-record behind PERF.md's "Golden-image parity" table (VERDICT r2 #9).
+"""Full-resolution golden byte-diff against the reference's committed
+render ``out.bmp``.
 
 Renders the reference's exact golden workload (800 x 800, 1024 spp,
-/root/reference/test_scene.txt) twice with different seeds, sRGB-encodes
+examples/test_scene.txt) twice with different seeds, sRGB-encodes
 both, and byte-diffs (a) ours vs the committed ``out.bmp`` and (b) ours
 vs ours.  Acceptance = noise-limited: distribution (a) must match
 distribution (b), because the reference's RNG is time-seeded
@@ -12,9 +12,11 @@ much.  Also checks signed regional means (8x8 grid) for systematic bias.
 
 The pytest twin (tests/test_golden.py::test_golden_fullres_bytediff)
 runs the same comparisons at reduced spp on the suite's pinned CPU
-backend; this script is the full-scale record on the chip.
+backend; this script is the full-scale run on a GPU.  ``out.bmp`` is
+not in this repository: point ``RAYTRACE_TPU_REFERENCE_DIR`` at a
+snapshot of the upstream repository.
 
-Usage: python tools/golden_check.py   (~3 min on one v5e)
+Usage: python tools/golden_check.py [spp]   (time: not measured)
 """
 
 import json
@@ -25,6 +27,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE_DIR = os.environ.get("RAYTRACE_TPU_REFERENCE_DIR", "/root/reference")
 
 
@@ -38,7 +41,7 @@ def main(spp=1024):
 
     enable_compile_cache()
     ref = read_bmp(os.path.join(REFERENCE_DIR, "out.bmp")).astype(np.int32)
-    sc = load_scene_file(os.path.join(REFERENCE_DIR, "test_scene.txt"),
+    sc = load_scene_file(os.path.join(REPO, "examples", "test_scene.txt"),
                          dtype=jnp.float32)
 
     def render_bytes(seed):
